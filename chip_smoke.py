@@ -1,24 +1,39 @@
 #!/usr/bin/env python3
-"""Drive partseg_tpu_torch's serving path on one CUDA card and check it.
+"""Drive partseg_tpu_torch's serving and training paths on one CUDA card
+and check them.
 
     python3 chip_smoke.py
 
 Phases (one JSON line each; any failure exits non-zero):
-  1. device   — require CUDA; print nvidia-smi's name and power limit.
-  2. build    — build the CUDA kernels from partseg_tpu_torch/csrc (nvcc).
-  3. kernels  — each kernel against its plain PyTorch version on the card,
-                at the CelebA serving shapes (B = 256), f32, TF32 off.
-  4. serving  — the CelebA model (full width, bf16, seeded random weights,
-                use_pallas=True) answers B = 256 inference and transfer
-                requests; the kernels' launch counters show the path went
-                through both kernels.
-  5. parity   — the same weights at f32, B = 2: the port on the card
-                (kernels, cuDNN) against the port on the CPU (plain
-                versions).
-  6. timing   — CUDA-event medians of each kernel, its plain version and
-                the end-to-end requests; bounds from the H100's peaks.
-  7. profile  — torch.profiler device time by kernel family over one
-                infer and one transfer request, and the device's idle share.
+  1. device       — require CUDA; print nvidia-smi's name and power limit.
+  2. build        — build the CUDA kernels from partseg_tpu_torch/csrc (nvcc).
+  3. kernels      — each kernel against its plain PyTorch version on the
+                    card, f32 with TF32 off (bf16 too for the warps): the
+                    serving kernels at the CelebA serving shapes (B = 256),
+                    the warp kernels (phase kernels_warp) at the speed128
+                    training shapes.
+  4. backward     — each kernel wrapper's autograd backward against
+                    torch.autograd.grad through its plain version, f32.
+  5. serving      — the CelebA model (full width, bf16, seeded random
+                    weights, use_pallas=True) answers B = 256 inference and
+                    transfer requests; the launch counters show the path
+                    went through softmax_moments and render_assemble.
+  6. parity       — the same weights at f32, B = 2: the port on the card
+                    (kernels, cuDNN) against the port on the CPU (plain
+                    versions).
+  7. train        — speed128 (full width, bf16, B = 128, seeded random
+                    weights, the port's random VGG) trains a few periods on
+                    device-resident images; exact launches per period. Then
+                    train_zeros_padding: the same with the warp's
+                    padding_mode "zeros", which goes through bilinear_sample.
+  8. train_parity — the same config at f32, B = 2, one period from the same
+                    state and draws: card against CPU, gradients included.
+  9. timing       — CUDA-event medians of each kernel, its plain version,
+                    its backward and the end-to-end requests and train
+                    period; bounds from the H100's peaks.
+ 10. profile      — torch.profiler device time by kernel family over one
+                    infer, one transfer request and one train period, and
+                    the device's idle share.
 Then the kernels line, nvidia-smi's line, and the final status line.
 
 Imports nothing of JAX: it needs only this checkout, PyTorch and nvcc.
@@ -26,27 +41,43 @@ Imports nothing of JAX: it needs only this checkout, PyTorch and nvcc.
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
+import os
 import statistics
 import subprocess
 import time
 
 import torch
+import torch.nn.functional as F
 
-from partseg_tpu_torch.configs import model_config
+from partseg_tpu_torch.augment import ColorParams, PairDraws, TPSParams, sample_pair_draws
+from partseg_tpu_torch.bench import build_trainer
+from partseg_tpu_torch.configs import model_config, train_config
 from partseg_tpu_torch.evals import make_infer_fn, transfer_batch
 from partseg_tpu_torch.models.partnet import PartNet, init_weights
+from partseg_tpu_torch.partops import bilinear_sample
 from partseg_tpu_torch.partops.kernels import (
     _build,
+    bilinear_sample_fused,
+    bilinear_sample_plain,
     render_assemble,
     render_assemble_plain,
     reset_launch_counts,
     softmax_moments,
     softmax_moments_plain,
+    tps_warp,
+    tps_warp_plain,
 )
+from partseg_tpu_torch.partops.kernels.bilinear_sample import sample_with_grads
+from partseg_tpu_torch.partops.kernels.tps_warp import band_config
 from partseg_tpu_torch.partops.moments import precision_from_cov
+from partseg_tpu_torch.train import build_perceptual, create_state, make_loss_fn, make_train_period
+from partseg_tpu_torch.train.state import trainable, warmup_cosine
 
-BATCH = 256
+BATCH = 256                   # serving requests
+TRAIN_BATCH = 128             # speed128's per-card batch
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
@@ -140,6 +171,18 @@ def render_assemble_bound(b, k, f, res):
     return bytes_, flops
 
 
+def tps_warp_bound(b, h, w, c, m, elt):
+    bytes_ = 2 * elt * b * h * w * c + 4 * b * m * 2 + 4 * h * w * m   # image, out; w; basis
+    flops = b * h * w * (4 * m + 10 * c)                                # flow dot; 4-tap lerp
+    return bytes_, flops
+
+
+def bilinear_bound(b, n, c, elt, hw):
+    bytes_ = elt * b * hw * c + 8 * b * n + elt * b * n * c             # image, coords, out
+    flops = b * n * (12 + 10 * c)
+    return bytes_, flops
+
+
 def bound_ms(bytes_, flops):
     t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOPS_PER_S * 1e3
@@ -210,6 +253,164 @@ def phase_kernels(cfg) -> dict:
         "softmax_moments": "parts rtol 1e-5; mu, sigma atol 1e-5",
         "render_assemble": "atol 1e-5 * max|plain output|"})
     return errs
+
+
+
+def warp_inputs(gen, dtype=torch.float32):
+    """The speed128 warp shapes: the warp_fraction head of a B = 128 batch
+    of 128² images (32 images), its spline weights, the static basis, and
+    the 16384 sample coords per image that tps_warp's backward gives
+    bilinear_sample."""
+    cfg = train_config("speed128")
+    sampler = cfg.augment.make_sampler()
+    nw = math.ceil(TRAIN_BATCH * cfg.augment.warp_fraction)
+    s = cfg.model.img_size
+    img = torch.rand((nw, s, s, 3), generator=gen, device="cuda").to(dtype)
+    weights = sampler.sample(gen, nw).weights.contiguous()
+    basis = sampler.flow_basis(s, s, "cuda")
+    coords = torch.einsum("nm,bmk->bnk", basis, weights).contiguous()
+    return img, weights, basis, coords
+
+
+def _with_band(kh: int):
+    """Set $PARTSEG_WARP_BAND (0 clears it); returns the old value."""
+    old = os.environ.pop("PARTSEG_WARP_BAND", None)
+    if kh:
+        os.environ["PARTSEG_WARP_BAND"] = str(kh)
+    return old
+
+
+def phase_warp_kernels() -> dict:
+    """tps_warp (unbanded, and banded at kh = 56 and a tight 40) and
+    bilinear_sample (primal and grads variant; border and zeros) against
+    their plain versions at the training shapes. Tolerances: f32 tps_warp
+    1e-4 (the flow is a 28-term f32 dot summed in another order; its ulps
+    move the taps, and neighbouring pixels differ by up to 1); bf16 against
+    the plain version computed in f32 from the same bf16 image and cast
+    once: one bf16 ulp at values ≤ 1 (2⁻⁸) plus 1e-4; f32 bilinear_sample
+    1e-6 (the same taps and weights, lerp products maybe fused)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    img, weights, basis, coords = warp_inputs(gen)
+    report, errs = [], {"tps_warp": 0.0, "bilinear_sample": 0.0}
+    old = os.environ.get("PARTSEG_WARP_BAND")
+    try:
+        for kh in (0, 56, 40):
+            _with_band(kh)
+            for dtype in (torch.float32, torch.bfloat16):
+                im = img.to(dtype)
+                band, tile = band_config(dtype, im.shape[1], im.shape[2])
+                got = tps_warp(im, weights, basis)
+                want = tps_warp_plain(im.float(), weights, basis, band, tile).to(dtype)
+                torch.cuda.synchronize()
+                e = max_err(got, want)
+                tol = 1e-4 if dtype == torch.float32 else 2 ** -8 + 1e-4
+                report.append({"kernel": "tps_warp", "band": band, "tile": tile,
+                               "dtype": str(dtype), "max_abs": e})
+                check(band == kh, f"tps_warp band {band}, expected {kh}")
+                check(got.dtype == dtype and e <= tol,
+                      f"tps_warp kh={kh} {dtype}: {e} > {tol}")
+                if dtype == torch.float32:
+                    errs["tps_warp"] = max(errs["tps_warp"], e)
+    finally:
+        _with_band(0)
+        if old is not None:
+            os.environ["PARTSEG_WARP_BAND"] = old
+    # Coordinates beyond the border too, for the clamp and the zeros fade.
+    wide = (coords * 1.15).contiguous()
+    for dtype in (torch.float32, torch.bfloat16):
+        im = img.to(dtype)
+        for mode in ("border", "zeros"):
+            got = bilinear_sample(im, wide, mode, impl="fused")
+            want = bilinear_sample(im.float(), wide, mode, impl="gather").to(dtype)
+            torch.cuda.synchronize()
+            e = max_err(got, want)
+            tol = 1e-6 if dtype == torch.float32 else 2 ** -8 + 1e-6
+            report.append({"kernel": "bilinear_sample", "mode": mode, "dtype": str(dtype),
+                           "max_abs": e})
+            check(e <= tol, f"bilinear_sample {mode} {dtype}: {e} > {tol}")
+            if dtype == torch.float32:
+                errs["bilinear_sample"] = max(errs["bilinear_sample"], e)
+    grads = sample_with_grads(img, wide)
+    plain = bilinear_sample_plain(img, wide, with_grads=True)
+    torch.cuda.synchronize()
+    e = max(max_err(a, b) for a, b in zip(grads, plain))
+    report.append({"kernel": "bilinear_sample", "variant": "grads", "max_abs": e})
+    check(e <= 1e-6, f"bilinear_sample grads variant: {e} > 1e-6")
+    errs["bilinear_sample"] = max(errs["bilinear_sample"], e)
+    emit("kernels_warp", cases=report, tolerances={
+        "tps_warp": "f32 1e-4; bf16 2^-8 + 1e-4 against the f32 plain version cast once",
+        "bilinear_sample": "f32 1e-6; bf16 2^-8 + 1e-6"})
+    return errs
+
+
+def _scaled_err(got, want) -> float:
+    return max_err(got, want) / max(want.abs().max().item(), 1e-30)
+
+
+def backward_cases(gen, batch=TRAIN_BATCH):
+    """(name, fn, inputs, cotangent-shaped output) at the speed128 training
+    shapes: each fn maps the inputs (requiring grad) to its outputs."""
+    cfg = train_config("speed128")
+    m, k = cfg.model.map_size, cfg.model.n_parts
+    logits = 3.0 * torch.randn((batch, m, m, k + 1), generator=gen, device="cuda")
+    img, weights, basis, coords = warp_inputs(gen)
+    _, mu, sigma = softmax_moments_plain(logits[..., :k])
+    lam = precision_from_cov(sigma).contiguous()
+    out = cfg.model.decoder_out_size
+    render = []
+    for i, f in enumerate(cfg.model.decoder_features):
+        res = out // 2 ** (cfg.model.decoder_scales - 1 - i)
+        app = 0.5 * torch.randn((batch, k, f), generator=gen, device="cuda")
+        render.append((res, app))
+    return {
+        "softmax_moments": (lambda x: softmax_moments(x[..., :k]),
+                            lambda x: softmax_moments_plain(x[..., :k]), [logits]),
+        "render_assemble": (
+            lambda mu_, lam_, *apps: [render_assemble(mu_, lam_, a, r, r) for (r, _), a in
+                                      zip(render, apps)],
+            lambda mu_, lam_, *apps: [render_assemble_plain(mu_, lam_, a, r, r) for (r, _), a in
+                                      zip(render, apps)],
+            [mu.contiguous(), lam] + [a for _, a in render]),
+        "tps_warp": (lambda im, w: tps_warp(im, w, basis),
+                     lambda im, w: tps_warp_plain(im, w, basis), [img, weights]),
+        "bilinear_sample": (bilinear_sample_fused, lambda im, c: bilinear_sample_plain(im, c),
+                            [img, coords]),
+    }
+
+
+def _graph(fn, inputs, seed):
+    """(outputs, inputs requiring grad, seeded cotangents) of fn."""
+    xs = [x.detach().clone().requires_grad_() for x in inputs]
+    outs = fn(*xs)
+    outs = list(outs) if isinstance(outs, (tuple, list)) else [outs]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    cots = [torch.randn(o.shape, generator=g, device="cuda").to(o.dtype) for o in outs]
+    return outs, xs, cots
+
+
+def _grads(fn, inputs, seed):
+    outs, xs, cots = _graph(fn, inputs, seed)
+    return torch.autograd.grad(outs, xs, cots)
+
+
+def phase_backward() -> dict:
+    """Each Function's backward on the card against torch.autograd.grad
+    through its plain version, f32, TF32 off, at the training shapes.
+    Tolerance 1e-4 of each cotangent's largest entry: the backwards sum
+    over H·W (and channels) in another order — with atomics in no fixed
+    order for the image cotangents of the warps."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    report = {}
+    for name, (fn, plain, inputs) in backward_cases(gen).items():
+        got = _grads(fn, inputs, SEED + 12)
+        want = _grads(plain, inputs, SEED + 12)
+        torch.cuda.synchronize()
+        errs = [_scaled_err(a, b) for a, b in zip(got, want)]
+        report[name] = errs
+        check(all(math.isfinite(e) and e <= 1e-4 for e in errs),
+              f"{name} backward disagrees with autograd through the plain version: {errs}")
+    emit("backward", scaled_max_abs_err=report, tolerance="1e-4 of each cotangent's max")
+    return report
 
 
 def phase_serving(cfg) -> dict:
@@ -285,52 +486,196 @@ def phase_parity(cfg) -> None:
     check(seg_agree >= 0.999, f"card vs CPU seg agreement {seg_agree}")
 
 
+
+TRAIN_LAUNCHES = {"tps_warp": 1, "softmax_moments": 4, "render_assemble": 6,
+                  "bilinear_sample": 0}
+
+
+def launch_counts() -> dict:
+    return {"softmax_moments": softmax_moments.launches,
+            "render_assemble": render_assemble.launches,
+            "tps_warp": tps_warp.launches, "bilinear_sample": bilinear_sample_fused.launches}
+
+
+def phase_train() -> dict:
+    """speed128 at B = 128, bf16: warm-up periods (the first at lr = 0),
+    then one counted period after which the params must have moved."""
+    cfg = train_config("speed128")
+    state, period, batches, perceptual = build_trainer(cfg, TRAIN_BATCH, seed=SEED)
+    for _ in range(2):
+        state, metrics = period(state, batches, cfg.seed)
+    torch.cuda.synchronize()
+    before = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+    lr = warmup_cosine(cfg.optim)(state.opt_state.count)
+    reset_launch_counts()
+    state, metrics = period(state, batches, cfg.seed)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    values = {k: v.item() for k, v in metrics.items()}
+    moved = max((v - before[k]).abs().max().item() for k, v in state.model.state_dict().items())
+    check(all(math.isfinite(v) for v in values.values()), f"train metrics not finite: {values}")
+    check(lr > 0 and moved > 0, f"params did not move (lr {lr}, max |Δ| {moved})")
+    check(launches == TRAIN_LAUNCHES, f"train period launches {launches}, expected {TRAIN_LAUNCHES}")
+    emit("train", config="speed128", batch=TRAIN_BATCH, dtype=str(cfg.model.dtype),
+         vgg_mode=perceptual.vgg_mode, step=state.step, lr=lr, metrics=values,
+         max_abs_param_change=moved, launches=launches)
+    return {"cfg": cfg, "state": state, "period": period, "batches": batches,
+            "launches": launches}
+
+
+def _draws_to(draws: PairDraws, device) -> PairDraws:
+    c = draws.color
+    return PairDraws(TPSParams(draws.tps.weights.to(device)),
+                     ColorParams(*(getattr(c, f.name).to(device) for f in dataclasses.fields(c))))
+
+
+def phase_train_parity() -> None:
+    """speed128 at f32, B = 2, from the same weights, state (step 100,
+    lr > 0) and draws: the card (kernels, cuDNN, TF32 off) against the CPU
+    (plain versions). Tolerances: loss and metrics rtol 1e-4, gradients
+    1e-4 of the largest (f32 through ~40 layers, sums in another order).
+    Updated params: Adam turns rounding-level gradients into full steps
+    of either sign, so |ΔΔ| ≤ 2·3.5·lr everywhere, and 1e-2 of that where
+    the first moment exceeds 1e-2 of its largest."""
+    base = train_config("speed128")
+    cfg = base.replace(model=dataclasses.replace(base.model, dtype=torch.float32))
+    sampler = cfg.augment.make_sampler()
+    gen = torch.Generator().manual_seed(SEED + 20)
+    s = cfg.model.img_size
+    xs = [torch.rand((2, s, s, 3), generator=gen) for _ in range(2)]
+    draws = [sample_pair_draws(torch.Generator().manual_seed(SEED + 21 + i), 2, sampler,
+                               cfg.augment) for i in range(2)]
+    cpu_model = init_weights(PartNet(cfg.model, device="cpu"), seed=SEED)
+    sides = {}
+    for dev in ("cpu", "cuda"):
+        model = PartNet(cfg.model, device=dev)
+        model.load_state_dict(cpu_model.state_dict())
+        perc = build_perceptual(cfg, dev)
+        dr = [_draws_to(d, dev) for d in draws]
+        batches = tuple({"image": x.to(dev)} for x in xs)
+        loss, _ = make_loss_fn(cfg, model, sampler, perc, warp_on=True)(batches[0], dr[0])
+        params = trainable(model)
+        grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+        state = create_state(cfg, model, step=100)
+        state, metrics = make_train_period(cfg, model, sampler, perc)(state, batches, draws=dr)
+        sides[dev] = {"grads": {k: v.cpu() for k, v in grads.items()},
+                      "metrics": {k: v.item() for k, v in metrics.items()},
+                      "params": {k: v.detach().cpu() for k, v in model.state_dict().items()},
+                      "mu": {k: v.cpu() for k, v in state.opt_state.mu.items()}}
+    cpu, gpu = sides["cpu"], sides["cuda"]
+    metric_err = {k: abs(gpu["metrics"][k] - v) / max(abs(v), 1e-30)
+                  for k, v in cpu["metrics"].items()}
+    gscale = max(v.abs().max().item() for v in cpu["grads"].values())
+    grad_err = {part: max(max_err(gpu["grads"][k], v) for k, v in cpu["grads"].items()
+                          if k.startswith(part)) / gscale
+                for part in ("shape_enc", "app_enc", "decoder")}
+    trunk = sum(v.abs().sum().item() for k, v in gpu["grads"].items() if k.startswith("shape_enc"))
+    lr = 1e-3 * 101 / 500
+    mscale = max(v.abs().max().item() for v in cpu["mu"].values())
+    worst_all = worst_big = 0.0
+    start = cpu_model.state_dict()
+    for k, p in cpu["params"].items():
+        err = ((gpu["params"][k] - start[k]) - (p - start[k])).abs()
+        worst_all = max(worst_all, err.max().item())
+        big = cpu["mu"][k].abs() > 1e-2 * mscale
+        if big.any():
+            worst_big = max(worst_big, err[big].max().item())
+    emit("train_parity", batch=2, dtype="float32", metric_rel_err=metric_err,
+         grad_max_abs_err_over_max=grad_err, shape_enc_grad_abs_sum=trunk,
+         param_update_err=worst_all, param_update_err_big=worst_big, bound=2 * 3.5 * lr)
+    for k, e in metric_err.items():
+        check(e <= 1e-4, f"train_parity metric {k}: rel err {e}")
+    for part, e in grad_err.items():
+        check(e <= 1e-4, f"train_parity {part} gradients: {e} of the largest")
+    check(trunk > 0, "no gradient reached the shape encoder on the card")
+    check(worst_all <= 2 * 3.5 * lr and worst_big <= 1e-2 * 2 * 3.5 * lr,
+          f"train_parity params: {worst_all}, {worst_big} (lr {lr})")
+
+
 _CATEGORIES = (   # (category, lower-case kernel-name substrings), first match wins
     ("softmax_moments", ("softmax_moments_kernel",)),
     ("render_assemble", ("render_assemble_kernel",)),
-    ("group_norm", ("rowwisemoments", "fusedparams", "groupnorm", "group_norm")),
-    ("conv_matmul", ("conv", "xmma", "gemm", "cutlass", "fprop", "cudnn")),
+    ("tps_warp", ("tps_warp_kernel",)),
+    ("bilinear_sample", ("bilinear_sample_kernel",)),
+    ("group_norm", ("rowwisemoments", "fusedparams", "groupnorm", "group_norm",
+                    "compute_internal_gradients", "gamma_beta")),
+    ("conv_matmul", ("conv", "xmma", "gemm", "cutlass", "fprop", "dgrad", "wgrad", "cudnn",
+                     "sm90_", "sm80_")),
+    ("optimizer_foreach", ("foreach", "multi_tensor")),
+    ("scatter_index", ("index", "scatter", "gather")),
     ("softmax_argmax", ("softmax", "argmax", "reduce")),
     ("pool_upsample_cat", ("pool", "upsample", "cat")),
     ("elementwise_copy", ("elementwise", "copy", "cast", "vectorized")),
 )
 
 
-def phase_profile(served: dict) -> None:
-    """Device time by kernel over one infer + one transfer request at B,
-    from torch.profiler; idle share = 1 − kernel time / wall time (one
-    stream, so kernels do not overlap)."""
+def _profile_one(name: str, fn, batch: int) -> None:
     from torch.profiler import ProfilerActivity, profile
 
-    model, x_s, x_a = served["model"], served["x_s"], served["x_a"]
-    infer = make_infer_fn(model)
-    for name, fn in (("infer", lambda: infer(x_s)),
-                     ("transfer", lambda: transfer_batch(model, x_s, x_a))):
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy = {}
-        for e in kernels:
-            us = getattr(e, "self_device_time_total", 0.0)
-            cat = next((c for c, keys in _CATEGORIES
-                        if any(k in e.key.lower() for k in keys)), "other")
-            busy[cat] = busy.get(cat, 0.0) + us / 1e3
-        total = sum(busy.values())
-        top = sorted(kernels, key=lambda e: -getattr(e, "self_device_time_total", 0.0))[:8]
-        emit("profile", request=name, batch=x_s.shape[0], wall_ms=wall_ms,
-             device_ms=total, idle_share=(1 - total / wall_ms) if wall_ms > 0 else None,
-             by_category_ms=dict(sorted(busy.items(), key=lambda kv: -kv[1])),
-             top_kernels=[{"name": e.key[:90], "ms": e.self_device_time_total / 1e3,
-                           "calls": e.count} for e in top])
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = {}
+    for e in kernels:
+        us = getattr(e, "self_device_time_total", 0.0)
+        cat = next((c for c, keys in _CATEGORIES
+                    if any(k in e.key.lower() for k in keys)), "other")
+        busy[cat] = busy.get(cat, 0.0) + us / 1e3
+    total = sum(busy.values())
+    top = sorted(kernels, key=lambda e: -getattr(e, "self_device_time_total", 0.0))[:10]
+    # Where the host's time goes: the CPU-side ops by their own time.
+    host = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CPU]
+    top_host = sorted(host, key=lambda e: -e.self_cpu_time_total)[:10]
+    emit("profile", request=name, batch=batch, wall_ms=wall_ms,
+         device_ms=total, idle_share=(1 - total / wall_ms) if wall_ms > 0 else None,
+         kernel_launches=sum(e.count for e in kernels),
+         by_category_ms=dict(sorted(busy.items(), key=lambda kv: -kv[1])),
+         top_kernels=[{"name": e.key[:90], "ms": e.self_device_time_total / 1e3,
+                       "calls": e.count} for e in top],
+         top_host_ops=[{"name": e.key[:60], "self_cpu_ms": e.self_cpu_time_total / 1e3,
+                        "calls": e.count} for e in top_host])
 
 
-def phase_timing(cfg, served: dict, errs: dict, smi: str) -> list[dict]:
+def phase_profile(served: dict, trained: dict) -> None:
+    """Device time by kernel over one infer and one transfer request and
+    one train period, from torch.profiler; idle share = 1 − kernel time /
+    wall time (one stream, so kernels do not overlap)."""
+    model, x_s, x_a = served["model"], served["x_s"], served["x_a"]
+    infer = make_infer_fn(model)
+    _profile_one("infer", lambda: infer(x_s), x_s.shape[0])
+    _profile_one("transfer", lambda: transfer_batch(model, x_s, x_a), x_s.shape[0])
+    period, batches, seed = trained["period"], trained["batches"], trained["cfg"].seed
+    state = trained["state"]
+    _profile_one("train_period", lambda: period(state, batches, seed), TRAIN_BATCH)
+
+
+def phase_train_zeros() -> dict:
+    """speed128 with ``augment.padding_mode="zeros"`` (a config field users
+    set): the warp then builds the explicit flow and samples it through
+    the bilinear_sample kernel instead of tps_warp. One counted period."""
+    cfg = train_config("speed128", ["augment.padding_mode='zeros'"])
+    state, period, batches, _ = build_trainer(cfg, TRAIN_BATCH, seed=SEED)
+    state, _ = period(state, batches, cfg.seed)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    state, metrics = period(state, batches, cfg.seed)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    want = {**TRAIN_LAUNCHES, "tps_warp": 0, "bilinear_sample": 1}
+    check(all(math.isfinite(v.item()) for v in metrics.values()), "train (zeros) not finite")
+    check(launches == want, f"train (zeros padding) launches {launches}, expected {want}")
+    emit("train_zeros_padding", launches=launches, loss=metrics["loss"].item())
+    return launches
+
+
+def phase_timing(cfg, served: dict, trained: dict, zeros_launches: dict, errs: dict,
+                 smi: str) -> list[dict]:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     k, size = cfg.n_parts, cfg.map_size
     fg = serving_logits(gen, k, size)
@@ -350,6 +695,34 @@ def phase_timing(cfg, served: dict, errs: dict, smi: str) -> list[dict]:
         scales.append({"scale": name, "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": by})
     emit("timing_render_assemble_scales", batch=BATCH, scales=scales, nvidia_smi=smi)
 
+    # The warp kernels at the training shapes, bf16 as the step runs them.
+    img, weights, basis, coords = warp_inputs(gen, torch.bfloat16)
+    nw, s = img.shape[0], img.shape[1]
+    m = weights.shape[1]
+    tw_ms = event_ms(lambda: tps_warp(img, weights, basis), inner=KERNEL_INNER)
+    tw_plain = event_ms(lambda: tps_warp_plain(img, weights, basis), inner=KERNEL_INNER)
+    tw_bound, tw_by = bound_ms(*tps_warp_bound(nw, s, s, 3, m, 2))
+    bs_ms = event_ms(lambda: bilinear_sample_fused(img, coords), inner=KERNEL_INNER)
+    bs_plain = event_ms(lambda: bilinear_sample_plain(img, coords), inner=KERNEL_INNER)
+    bs_bound, bs_by = bound_ms(*bilinear_bound(nw, s * s, 3, 2, s * s))
+    grid = coords.flip(-1)[:, None].to(img.dtype).contiguous()
+    nchw = img.permute(0, 3, 1, 2)
+    bs_lib = event_ms(lambda: F.grid_sample(nchw, grid, mode="bilinear", padding_mode="border",
+                                            align_corners=False), inner=KERNEL_INNER)
+    emit("timing_warp_kernels", images=nw, size=s, dtype="bfloat16",
+         tps_warp={"ms": tw_ms, "plain_ms": tw_plain, "bound_ms": tw_bound},
+         bilinear_sample={"ms": bs_ms, "plain_ms": bs_plain, "bound_ms": bs_bound,
+                          "library_ms_grid_sample": bs_lib}, nvidia_smi=smi)
+
+    # Each Function's backward at the training shapes (f32 inputs).
+    bwd = {}
+    for name, (fn, plain, inputs) in backward_cases(gen).items():
+        for label, f in (("ms", fn), ("plain_ms", plain)):
+            outs, xs, cots = _graph(f, inputs, SEED + 13)
+            bwd.setdefault(name, {})[label] = event_ms(
+                lambda: torch.autograd.grad(outs, xs, cots, retain_graph=True), runs=10)
+    emit("timing_backward", batch=TRAIN_BATCH, backward=bwd, nvidia_smi=smi)
+
     model, x_s, x_a = served["model"], served["x_s"], served["x_a"]
     infer = make_infer_fn(model)
     torch.cuda.reset_peak_memory_stats()
@@ -360,23 +733,56 @@ def phase_timing(cfg, served: dict, errs: dict, smi: str) -> list[dict]:
          transfer_ms=transfer_ms, transfer_img_per_s=BATCH / transfer_ms * 1e3,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, nvidia_smi=smi)
 
+    tcfg, state = trained["cfg"], trained["state"]
+    period, batches = trained["period"], trained["batches"]
+    torch.cuda.reset_peak_memory_stats()
+    period_ms = event_ms(lambda: period(state, batches, tcfg.seed), runs=10, warmup=2)
+    images = TRAIN_BATCH * tcfg.augment.warp_every
+    emit("timing_train", config="speed128", batch=TRAIN_BATCH, dtype=str(tcfg.model.dtype),
+         period_ms=period_ms, images_per_period=images,
+         train_img_per_s=images / period_ms * 1e3,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, nvidia_smi=smi)
+
     ra_by = "bytes" if all(s["bound_by"] == "bytes" for s in scales) else "operations"
+    train = trained["launches"]
     return [
         {"name": "softmax_moments", "route": "cuda",
          "source": "partseg_tpu_torch/csrc/softmax_moments.cu",
          "replaces": "partseg_tpu/partops/pallas/softmax_moments.py:73",
-         "launches": served["launches"]["softmax_moments"],
+         "launches": train["softmax_moments"], "path": "speed128 train period",
+         "launches_serving": served["launches"]["softmax_moments"],
          "max_abs_err": errs["softmax_moments"], "ms": sm_ms, "plain_ms": sm_plain,
          "bound_ms": sm_bound, "bound_by": sm_by, "library_ms": None,
+         "backward_ms": bwd["softmax_moments"]["ms"],
          "per": f"one call, logits [{BATCH},{size},{size},{k}] of [..,{k + 1}]"},
         {"name": "render_assemble", "route": "cuda",
          "source": "partseg_tpu_torch/csrc/render_assemble.cu",
          "replaces": "partseg_tpu/partops/pallas/render_assemble.py:121",
-         "launches": served["launches"]["render_assemble"],
+         "launches": train["render_assemble"], "path": "speed128 train period",
+         "launches_serving": served["launches"]["render_assemble"],
          "max_abs_err": errs["render_assemble"],
          "ms": sum(s["ms"] for s in scales), "plain_ms": sum(s["plain_ms"] for s in scales),
          "bound_ms": sum(s["bound_ms"] for s in scales), "bound_by": ra_by,
-         "library_ms": None, "per": f"one decode: {len(scales)} launches at B={BATCH}"},
+         "library_ms": None, "backward_ms": bwd["render_assemble"]["ms"],
+         "per": f"one decode: {len(scales)} launches at B={BATCH}"},
+        {"name": "tps_warp", "route": "cuda",
+         "source": "partseg_tpu_torch/csrc/tps_warp.cu",
+         "replaces": "partseg_tpu/partops/pallas/bilinear_warp.py:392",
+         "launches": train["tps_warp"], "path": "speed128 train period",
+         "max_abs_err": errs["tps_warp"], "ms": tw_ms, "plain_ms": tw_plain,
+         "bound_ms": tw_bound, "bound_by": tw_by, "library_ms": None,
+         "backward_ms": bwd["tps_warp"]["ms"],
+         "per": f"one call, image [{nw},{s},{s},3] bf16 (band mode: the same kernel)"},
+        {"name": "bilinear_sample", "route": "cuda",
+         "source": "partseg_tpu_torch/csrc/bilinear_sample.cu",
+         "replaces": "partseg_tpu/partops/pallas/bilinear_warp.py:259",
+         "launches": zeros_launches["bilinear_sample"],
+         "path": "speed128 train period with augment.padding_mode=zeros",
+         "launches_speed128": train["bilinear_sample"],
+         "max_abs_err": errs["bilinear_sample"], "ms": bs_ms, "plain_ms": bs_plain,
+         "bound_ms": bs_bound, "bound_by": bs_by, "library_ms": bs_lib,
+         "backward_ms": bwd["bilinear_sample"]["ms"],
+         "per": f"one call, image [{nw},{s},{s},3] bf16 at {s * s} points each"},
     ]
 
 
@@ -385,10 +791,15 @@ def main() -> int:
     phase_build()
     cfg = model_config("celeba", use_pallas=True)
     errs = phase_kernels(cfg)
+    errs.update(phase_warp_kernels())
+    phase_backward()
     served = phase_serving(cfg)
     phase_parity(cfg)
-    kernels = phase_timing(cfg, served, errs, smi)
-    phase_profile(served)
+    trained = phase_train()
+    zeros_launches = phase_train_zeros()
+    phase_train_parity()
+    kernels = phase_timing(cfg, served, trained, zeros_launches, errs, smi)
+    phase_profile(served, trained)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -8,10 +8,14 @@ at first use; on a CPU tensor each kernel wrapper runs its plain
 PyTorch version instead.
 
 Layering (mirrors partseg_tpu):
-  partops/  — part ops (plain torch) + kernels/ (CUDA wrappers)
+  partops/  — part ops (plain torch) + kernels/ (CUDA wrappers, autograd Functions)
   models/   — hourglass encoders + image decoder (nn.Module)
+  augment/  — TPS sampler, colour jitter, paired augmentation
+  losses/   — VGG perceptual and TPS equivariance losses
+  train/    — configs, optax-semantics optimizer, the train step and period
   evals/    — serving entry points: make_infer_fn, infer_image, transfer
-  configs   — model presets; convert — Flax params → state_dict
+  configs   — model and train presets; convert — Flax params → state_dict
+  bench     — train-step throughput on the card
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"`` (see ``device.default_device``).

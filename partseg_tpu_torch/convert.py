@@ -42,6 +42,8 @@ _CHILDREN: dict[str, list[tuple[str, str, str]]] = {
     "decoder": [(r"app_proj_(\d+)", "app_proj.{0}", "dense"),
                 (r"ResBlock_(\d+)", "blocks.{0}", "resblock"),
                 (r"Conv_0", "to_rgb", "conv")],
+    # losses/vgg.py's VGG19Features: conv{block}_{idx}, HWIO → OIHW.
+    "vgg": [(r"(conv\d_\d)", "{0}", "conv")],
 }
 
 _LEAVES = {
@@ -91,8 +93,10 @@ def _torch_key(path: str, root: str) -> tuple[str, callable]:
 def flax_to_state_dict(params: Mapping, root: str = "partnet") -> dict[str, torch.Tensor]:
     """The JAX package's params (numpy leaves) → the port's state_dict (f32
     tensors on the CPU). ``root`` names the module the params belong to:
-    "partnet" (default) or one of its parts ("shape_enc", "app_enc",
-    "decoder", "stem", "hourglass", "resblock", "convblock")."""
+    "partnet" (default), one of its parts ("shape_enc", "app_enc",
+    "decoder", "stem", "hourglass", "resblock", "convblock"), or "vgg"
+    (the perceptual loss's VGG19Features). Any pytree shaped like the
+    params (Adam's moments) converts the same way."""
     if root not in _CHILDREN:
         raise KeyError(f"unknown root module kind {root!r}; known: {sorted(_CHILDREN)}")
     state: dict[str, torch.Tensor] = {}
@@ -132,3 +136,4 @@ def load_npz(path) -> dict[str, torch.Tensor]:
     """Read a state_dict written by ``save_npz``."""
     with np.load(path) as data:
         return {k: torch.from_numpy(data[k].copy()) for k in data.files}
+

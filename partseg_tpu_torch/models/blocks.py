@@ -74,14 +74,32 @@ class ConvBlock(nn.Module):
         return self.conv(F.relu(x))
 
 
+class _F8Store(torch.autograd.Function):
+    """float8_e4m3fn round trip of the value with an identity gradient."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.to(torch.float8_e4m3fn).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def f8_store(x: torch.Tensor) -> torch.Tensor:
+    """Storage-only float8 quantization, twin of the JAX ``f8_store``: the
+    value rounds through float8_e4m3fn, the gradient passes straight
+    through. Without the custom backward, autograd would round the
+    cotangent through e4m3 too and flush cotangents below about 2⁻⁹."""
+    return _F8Store.apply(x)
+
+
 def quantize_activation(x: torch.Tensor, act_quant: str) -> torch.Tensor:
-    """Activation-storage quantization: "none", or "f8" — a float8_e4m3fn
-    round trip of the value (forward only; the straight-through gradient
-    of the JAX package's ``f8_store`` comes with the training slice)."""
+    """Activation-storage quantization: "none", or "f8" (``f8_store``)."""
     if act_quant == "none":
         return x
     if act_quant == "f8":
-        return x.to(torch.float8_e4m3fn).to(x.dtype)
+        return f8_store(x)
     raise ValueError(f"unknown act_quant mode: {act_quant!r}")
 
 

@@ -13,6 +13,7 @@ from partseg_tpu_torch.partops.moments import (
 from partseg_tpu_torch.partops.pooling import pool_appearance
 from partseg_tpu_torch.partops.render import render_gaussians
 from partseg_tpu_torch.partops.softmax import normalize_maps, part_softmax, spatial_softmax
+from partseg_tpu_torch.partops.warp import bilinear_sample, warp_image
 
 __all__ = [
     "coord_grid",
@@ -27,4 +28,6 @@ __all__ = [
     "render_gaussians",
     "pool_appearance",
     "assemble_decoder_input",
+    "bilinear_sample",
+    "warp_image",
 ]

@@ -9,6 +9,10 @@ Convention (the same as partseg_tpu's, used everywhere in the port):
 The grids are computed in numpy float32 with the same expression as the
 JAX package, so both frameworks see bit-identical coordinates; the CUDA
 kernels evaluate the same float32 expression per pixel.
+
+The tensors are cached per (shape, device) and must not be modified: a
+fresh host-to-device copy on every call would make the host wait for
+the card in the middle of a training step.
 """
 
 from __future__ import annotations
@@ -35,10 +39,27 @@ def _moment_basis_np(h: int, w: int) -> np.ndarray:
     return np.stack([y, x, y * y, y * x, x * x], axis=-1)  # [H*W, 5]
 
 
+def as_device_tensor(array: np.ndarray, device) -> torch.Tensor:
+    """A constant array as a tensor on ``device``, created outside
+    inference mode so that training may use what serving made."""
+    with torch.inference_mode(False):
+        return torch.tensor(array, device=device)
+
+
+@functools.lru_cache(maxsize=128)
+def _grid(h: int, w: int, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    yy, xx = _coord_grid_np(h, w)
+    return as_device_tensor(yy, device), as_device_tensor(xx, device)
+
+
+@functools.lru_cache(maxsize=128)
+def _basis(h: int, w: int, device: torch.device) -> torch.Tensor:
+    return as_device_tensor(_moment_basis_np(h, w), device)
+
+
 def coord_grid(h: int, w: int, device=None):
     """Return (yy, xx), each [H, W] f32, normalized pixel-center coords in [-1, 1]."""
-    yy, xx = _coord_grid_np(h, w)
-    return torch.tensor(yy, device=device), torch.tensor(xx, device=device)
+    return _grid(h, w, torch.device(device or "cpu"))
 
 
 def moment_basis(h: int, w: int, device=None) -> torch.Tensor:
@@ -47,4 +68,4 @@ def moment_basis(h: int, w: int, device=None) -> torch.Tensor:
     ``p_flat @ moment_basis`` gives the raw moments E[y], E[x], E[y²],
     E[yx], E[x²] of a spatial distribution p.
     """
-    return torch.tensor(_moment_basis_np(h, w), device=device)
+    return _basis(h, w, torch.device(device or "cpu"))

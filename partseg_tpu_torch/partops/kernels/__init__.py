@@ -1,9 +1,13 @@
-"""CUDA kernel wrappers for the JAX package's Pallas kernels on the
-serving path. Each wrapper validates its inputs, runs the plain PyTorch
-version on a CPU tensor, and launches its hand-written kernel (built
-from ``csrc/`` at first use) on a CUDA tensor, counting launches in its
-``launches`` attribute."""
+"""CUDA kernel wrappers for the JAX package's Pallas kernels. Each
+wrapper validates its inputs, runs the plain PyTorch version on a CPU
+tensor, and launches its hand-written kernel (built from ``csrc/`` at
+first use) on a CUDA tensor, counting forward launches in its
+``launches`` attribute. Each is an autograd Function."""
 
+from partseg_tpu_torch.partops.kernels.bilinear_sample import (
+    bilinear_sample_fused,
+    bilinear_sample_plain,
+)
 from partseg_tpu_torch.partops.kernels.render_assemble import (
     render_assemble,
     render_assemble_plain,
@@ -12,8 +16,9 @@ from partseg_tpu_torch.partops.kernels.softmax_moments import (
     softmax_moments,
     softmax_moments_plain,
 )
+from partseg_tpu_torch.partops.kernels.tps_warp import tps_warp, tps_warp_plain
 
-KERNELS = (softmax_moments, render_assemble)
+KERNELS = (softmax_moments, render_assemble, tps_warp, bilinear_sample_fused)
 
 
 def reset_launch_counts() -> None:
@@ -26,6 +31,10 @@ __all__ = [
     "softmax_moments_plain",
     "render_assemble",
     "render_assemble_plain",
+    "tps_warp",
+    "tps_warp_plain",
+    "bilinear_sample_fused",
+    "bilinear_sample_plain",
     "KERNELS",
     "reset_launch_counts",
 ]

@@ -3,7 +3,7 @@
 Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` (one ``nvcc``
 per source, all started together), linked into one shared library with
 a plain C interface, and loaded with ``ctypes``. The build happens at
-first use and is cached by a hash of the sources and flags under
+first use and is cached by a hash of the sources, headers and flags under
 ``build/kernels/`` beside the package (listed in ``.gitignore``), so a
 fresh checkout builds its own kernels in a few seconds.
 
@@ -50,7 +50,7 @@ def _sources() -> list[Path]:
 
 def _tag(sources: list[Path]) -> str:
     h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
-    for src in sources:
+    for src in sources + sorted(CSRC_DIR.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

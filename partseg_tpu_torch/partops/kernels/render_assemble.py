@@ -5,10 +5,13 @@ Replaces the Pallas TPU kernel ``partseg_tpu/partops/pallas/render_assemble.py``
 computes out[b, u, c] = Σ_k φ_k(u)·a[b, k, c] without writing the
 [B, H, W, K] blob tensor, summing in f32 whatever the appearance dtype.
 
-On a CPU tensor the wrapper runs the plain version
+``render_assemble`` is an autograd Function. Its forward launches the
+kernel on a CUDA tensor (or raises) and runs the plain version
 (``render_gaussians(..., precision=lam)`` + ``assemble_decoder_input`` in
-f32); on a CUDA tensor it launches the kernel or raises. Forward only:
-the backward comes with the training slice.
+f32) on a CPU tensor. Its backward is the JAX ``custom_vjp``'s (``_bwd``)
+in plain PyTorch, the same code on both devices: it recomputes φ, and
+puts the whole off-diagonal Λ cotangent on ``[..., 0, 1]`` because the
+forward reads only that entry (doubled).
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import ctypes
 import torch
 
 from partseg_tpu_torch.partops.assembly import assemble_decoder_input
+from partseg_tpu_torch.partops.coords import coord_grid
 from partseg_tpu_torch.partops.kernels import _build
 from partseg_tpu_torch.partops.render import RENDER_KERNELS, render_gaussians
 
@@ -64,15 +68,7 @@ def _check(mu, lam, app, h, w, kernel) -> None:
         raise ValueError(f"render_assemble takes at most {MAX_BATCH} images, got {b}")
 
 
-def render_assemble(mu: torch.Tensor, lam: torch.Tensor, app: torch.Tensor,
-                    h: int, w: int, kernel: str = "gauss") -> torch.Tensor:
-    """mu [B, K, 2] f32, lam [B, K, 2, 2] f32 (precision Σ⁻¹), app [B, K, C]
-    f32 or bf16 → [B, h, w, C] f32."""
-    _check(mu, lam, app, h, w, kernel)
-    if app.device.type == "cpu":
-        return render_assemble_plain(mu, lam, app, h, w, kernel)
-    if app.device.type != "cuda":
-        raise ValueError(f"render_assemble runs on CPU or CUDA, got {app.device}")
+def _launch(mu, lam, app, h, w, kernel):
     b, k, c = app.shape
     out = torch.empty((b, h, w, c), device=app.device, dtype=torch.float32)
     fn = _build.library().partseg_render_assemble
@@ -85,6 +81,62 @@ def render_assemble(mu: torch.Tensor, lam: torch.Tensor, app: torch.Tensor,
     _build.check_launch(err, "render_assemble")
     render_assemble.launches += 1
     return out
+
+
+def render_assemble_vjp(mu, lam, app, h: int, w: int, kernel: str, g):
+    """(d_mu, d_lam, d_app) from the output cotangent g [B, h, w, C]."""
+    b, k, c = app.shape
+    gf = g.reshape(b, h * w, c).float()
+    yy, xx = coord_grid(h, w, device=mu.device)
+    u = torch.stack([yy.reshape(-1), xx.reshape(-1)], dim=-1)           # [HW, 2]
+    diff = u[None, :, None, :] - mu[:, None, :, :].float()              # [B, HW, K, 2]
+    lamf = lam.float()
+    d = torch.clamp(torch.einsum("bnki,bkij,bnkj->bnk", diff, lamf, diff), min=0.0)
+    if kernel == "gauss":
+        phi = torch.exp(-0.5 * d)
+        dphi_dd = -0.5 * phi
+    else:
+        phi = 1.0 / (1.0 + d)
+        dphi_dd = -(phi * phi)
+    d_app = torch.einsum("bnk,bnc->bkc", phi, gf)
+    g_d = torch.einsum("bnc,bkc->bnk", gf, app.float()) * dphi_dd
+    # d = diffᵀ Λ diff:  ∂d/∂μ = −2 Λ diff;  ∂d/∂Λ = diff diffᵀ.
+    d_mu = torch.einsum("bnk,bkij,bnkj->bki", g_d, -2.0 * lamf, diff)
+    d_sym = torch.einsum("bnk,bnki,bnkj->bkij", g_d, diff, diff)
+    zero = torch.zeros_like(d_sym[..., 0, 0])
+    d_lam = torch.stack([
+        torch.stack([d_sym[..., 0, 0], d_sym[..., 0, 1] + d_sym[..., 1, 0]], dim=-1),
+        torch.stack([zero, d_sym[..., 1, 1]], dim=-1),
+    ], dim=-2)
+    return d_mu.to(mu.dtype), d_lam.to(lam.dtype), d_app.to(app.dtype)
+
+
+class _RenderAssemble(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, mu, lam, app, h, w, kernel):
+        if app.device.type == "cpu":
+            out = render_assemble_plain(mu, lam, app, h, w, kernel)
+        else:
+            out = _launch(mu, lam, app, h, w, kernel)
+        ctx.save_for_backward(mu, lam, app)
+        ctx.shape = (h, w, kernel)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        mu, lam, app = ctx.saved_tensors
+        return (*render_assemble_vjp(mu, lam, app, *ctx.shape, g), None, None, None)
+
+
+def render_assemble(mu: torch.Tensor, lam: torch.Tensor, app: torch.Tensor,
+                    h: int, w: int, kernel: str = "gauss") -> torch.Tensor:
+    """mu [B, K, 2] f32, lam [B, K, 2, 2] f32 (precision Σ⁻¹), app [B, K, C]
+    f32 or bf16 → [B, h, w, C] f32. Differentiable in mu, lam and app."""
+    _check(mu, lam, app, h, w, kernel)
+    if app.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"render_assemble runs on CPU or CUDA, got {app.device}")
+    return _RenderAssemble.apply(mu, lam, app, h, w, kernel)
 
 
 render_assemble.launches = 0

@@ -6,10 +6,12 @@ the f32 logits once per pass and writes the part distributions and the
 raw moments (E[y], E[x], E[y²], E[yx], E[x²]) per (b, k); μ and Σ are
 formed here with the same raw-moment formula as ``moments_from_raw``.
 
-On a CPU tensor the wrapper runs the plain version
-(``spatial_softmax`` + ``soft_argmax_moments``); on a CUDA tensor it
-launches the kernel or raises. Forward only: the backward comes with the
-training slice.
+``softmax_moments`` is an autograd Function. Its forward launches the
+kernel on a CUDA tensor (or raises) and runs the plain version
+(``spatial_softmax`` + ``soft_argmax_moments``) on a CPU tensor. Its
+backward is the closed form of the JAX ``custom_vjp`` (``_bwd``) in plain
+PyTorch, the same code on both devices: the TPU package has no backward
+kernel either (its backward is jnp, which XLA fuses).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import ctypes
 
 import torch
 
+from partseg_tpu_torch.partops.coords import moment_basis
 from partseg_tpu_torch.partops.kernels import _build
 from partseg_tpu_torch.partops.moments import moments_from_raw, soft_argmax_moments
 from partseg_tpu_torch.partops.softmax import spatial_softmax
@@ -54,15 +57,7 @@ def _check(logits: torch.Tensor) -> int:
     return ld
 
 
-def softmax_moments(logits: torch.Tensor):
-    """logits [B, H, W, K] f32 → (parts [B, H, W, K] f32, mu [B, K, 2] f32,
-    sigma [B, K, 2, 2] f32); the same numbers as spatial_softmax +
-    soft_argmax_moments up to the order of the f32 sums."""
-    ld = _check(logits)
-    if logits.device.type == "cpu":
-        return softmax_moments_plain(logits)
-    if logits.device.type != "cuda":
-        raise ValueError(f"softmax_moments runs on CPU or CUDA, got {logits.device}")
+def _launch(logits: torch.Tensor, ld: int):
     b, h, w, k = logits.shape
     parts = torch.empty((b, h, w, k), device=logits.device, dtype=torch.float32)
     raw = torch.empty((b, k, 5), device=logits.device, dtype=torch.float32)
@@ -76,6 +71,59 @@ def softmax_moments(logits: torch.Tensor):
     softmax_moments.launches += 1
     mu, sigma = moments_from_raw(raw)
     return parts, mu, sigma
+
+
+def softmax_moments_vjp(parts, mu, g_parts, g_mu, g_sigma):
+    """Logit cotangent from the outputs' cotangents (the JAX ``_bwd``):
+    chain (g_μ, g_Σ) to raw-moment cotangents, add ``basis @ g_raw`` to
+    g_parts, then take the softmax VJP over H·W. Any cotangent may be None."""
+    b, h, w, k = parts.shape
+    pf = parts.reshape(b, h * w, k)
+    g_mu = torch.zeros_like(mu) if g_mu is None else g_mu.float()
+    g_sigma = mu.new_zeros(mu.shape + (2,)) if g_sigma is None else g_sigma.float()
+    ey, ex = mu[..., 0], mu[..., 1]
+    g_cyy = g_sigma[..., 0, 0]
+    g_cyx = g_sigma[..., 0, 1] + g_sigma[..., 1, 0]
+    g_cxx = g_sigma[..., 1, 1]
+    # c = E2 − E1·E1ᵀ terms:
+    g_ey = g_mu[..., 0] - 2.0 * g_cyy * ey - g_cyx * ex
+    g_ex = g_mu[..., 1] - 2.0 * g_cxx * ex - g_cyx * ey
+    g_raw = torch.stack([g_ey, g_ex, g_cyy, g_cyx, g_cxx], dim=1)      # [B, 5, K]
+    g_p = torch.einsum("nm,bmk->bnk", moment_basis(h, w, device=parts.device), g_raw)
+    if g_parts is not None:
+        g_p = g_p + g_parts.reshape(b, h * w, k).float()
+    # Softmax (over HW) VJP: dL/dx = p · (g − Σ_n p·g).
+    inner = torch.sum(pf * g_p, dim=1, keepdim=True)
+    return (pf * (g_p - inner)).reshape(b, h, w, k)
+
+
+class _SoftmaxMoments(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, logits, ld):
+        if logits.device.type == "cpu":
+            parts, mu, sigma = softmax_moments_plain(logits)
+        else:
+            parts, mu, sigma = _launch(logits, ld)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(parts, mu)
+        return parts, mu, sigma
+
+    @staticmethod
+    def backward(ctx, g_parts, g_mu, g_sigma):
+        parts, mu = ctx.saved_tensors
+        return softmax_moments_vjp(parts, mu, g_parts, g_mu, g_sigma), None
+
+
+def softmax_moments(logits: torch.Tensor):
+    """logits [B, H, W, K] f32 → (parts [B, H, W, K] f32, mu [B, K, 2] f32,
+    sigma [B, K, 2, 2] f32); the same numbers as spatial_softmax +
+    soft_argmax_moments up to the order of the f32 sums. Differentiable
+    in the logits (the strided foreground slice too)."""
+    ld = _check(logits)
+    if logits.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"softmax_moments runs on CPU or CUDA, got {logits.device}")
+    return _SoftmaxMoments.apply(logits, ld)
 
 
 softmax_moments.launches = 0

@@ -16,6 +16,7 @@ import torch
 
 from partseg_tpu.models.partnet import PartNet as JaxPartNet
 from partseg_tpu.models.partnet import PartNetConfig as JaxConfig
+from partseg_tpu_torch import convert
 from partseg_tpu_torch.convert import load_flax_params
 from partseg_tpu_torch.models.partnet import PartNet, PartNetConfig
 
@@ -41,6 +42,27 @@ def torch_partnet(jax_params, **overrides) -> PartNet:
     cfg = PartNetConfig(**{**TINY, **overrides}, use_pallas=True, dtype=torch.float32)
     model = PartNet(cfg, device="cpu")
     return load_flax_params(model, jax.tree_util.tree_map(np.asarray, jax_params)).eval()
+
+
+def flax_params_from_port(init_fn, state_dict, *init_args, root: str = "partnet"):
+    """Flax params for a module whose ``init_fn`` (``module.init``) would make
+    them, filled from a port ``state_dict``: the inverse of
+    ``convert.flax_to_state_dict``. Only the tree's shapes are traced
+    (``jax.eval_shape``), so nothing is compiled."""
+    shapes = jax.eval_shape(init_fn, jax.random.key(0), *init_args)
+
+    def leaf(path, spec):
+        name = "/".join(p.key for p in path if p.key != "params")
+        key, _ = convert._torch_key(name, root)
+        value = state_dict[key].detach().cpu().numpy()
+        if value.ndim == 4:                      # conv OIHW → HWIO
+            value = value.transpose(2, 3, 1, 0)
+        elif value.ndim == 2:                    # Linear [out, in] → Dense [in, out]
+            value = value.T
+        assert value.shape == spec.shape, name
+        return jnp.asarray(value, spec.dtype)
+
+    return jax.tree_util.tree_map_with_path(leaf, shapes)
 
 
 def t(x) -> torch.Tensor:

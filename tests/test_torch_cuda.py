@@ -9,23 +9,43 @@ with a card and without JAX it runs on its own:
 f32 comparisons set TF32 off (cuDNN's f32 convolutions default to it).
 Tolerances: parts rtol 1e-5 (one exp and one division per element); μ,
 Σ atol 1e-5 (sums of H·W f32 terms in another order); render output
-atol 1e-5·max|out| (K products per element); whole-model outputs 1e-4
-of their scale (tens of f32 layers).
+atol 1e-5·max|out| (K products per element); warps 1e-4 (the TPS flow is
+a 28-term dot in another order) and 1e-6 at given coordinates;
+cotangents 1e-4 of their largest (sums over H·W in another order, with
+atomics for the warps' image cotangents); whole-model outputs and
+training metrics 1e-4 of their scale (tens of f32 layers).
 """
 
 import numpy as np
 import pytest
 import torch
 
+import dataclasses
+
+from partseg_tpu_torch.augment import TPSSampler
 from partseg_tpu_torch.evals import make_infer_fn, transfer_batch
 from partseg_tpu_torch.models.partnet import PartNet, PartNetConfig, init_weights
+from partseg_tpu_torch.partops import bilinear_sample
 from partseg_tpu_torch.partops.kernels import (
+    bilinear_sample_fused,
     render_assemble,
     render_assemble_plain,
     softmax_moments,
     softmax_moments_plain,
+    tps_warp,
+    tps_warp_plain,
 )
+from partseg_tpu_torch.partops.kernels.tps_warp import band_config
 from partseg_tpu_torch.partops.moments import precision_from_cov
+from partseg_tpu_torch.train import (
+    LossConfig,
+    OptimConfig,
+    TrainConfig,
+    build_perceptual,
+    create_state,
+    make_train_period,
+)
+from partseg_tpu_torch.augment import AugmentConfig, sample_pair_draws
 
 pytestmark = pytest.mark.cuda
 
@@ -106,3 +126,118 @@ def test_partnet_on_card_matches_cpu(cuda):
         torch.testing.assert_close(got[key].cpu(), want[key], rtol=0, atol=1e-4 * scale,
                                    msg=key)
     torch.testing.assert_close(got["seg"].cpu(), want["seg"])
+
+
+def _grad_pair(fn, plain, inputs, seed=0):
+    """Cotangents of fn's and plain's inputs under the same output cotangents."""
+    res = []
+    for f in (fn, plain):
+        xs = [x.detach().clone().requires_grad_() for x in inputs]
+        outs = f(*xs)
+        outs = list(outs) if isinstance(outs, (tuple, list)) else [outs]
+        g = torch.Generator(device=xs[0].device).manual_seed(seed)
+        cots = [torch.randn(o.shape, generator=g, device=o.device).to(o.dtype) for o in outs]
+        res.append(torch.autograd.grad(outs, xs, cots))
+    return res
+
+
+def _close_scaled(got, want, rel=1e-4):
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=rel * b.abs().max().item())
+
+
+@pytest.mark.parametrize("delta", [False, True])
+def test_softmax_moments_grad_matches_plain(cuda, delta):
+    x = _logits(8, 4, 32, 10, delta).to(cuda)
+    got, want = _grad_pair(lambda v: softmax_moments(v[..., :10]),
+                           lambda v: softmax_moments_plain(v[..., :10]), [x])
+    _close_scaled(got, want)
+
+
+@pytest.mark.parametrize("kernel", ["gauss", "heavy_tail"])
+def test_render_assemble_grad_matches_plain(cuda, kernel):
+    _, mu, sigma = softmax_moments_plain(_logits(9, 3, 32, 10)[..., :10])
+    lam = precision_from_cov(sigma)
+    app = torch.randn((3, 10, 24), generator=torch.Generator().manual_seed(2))
+    ins = [v.to(cuda).contiguous() for v in (mu, lam, app)]
+    got, want = _grad_pair(lambda m, l, a: render_assemble(m, l, a, 32, 32, kernel),
+                           lambda m, l, a: render_assemble_plain(m, l, a, 32, 32, kernel), ins)
+    _close_scaled(got, want)
+
+
+def _warp_inputs(cuda, b=3, h=40, w=48):
+    sampler = TPSSampler()
+    gen = torch.Generator().manual_seed(3)
+    img = torch.rand((b, h, w, 3), generator=gen).to(cuda)
+    weights = sampler.sample(gen, b).weights.to(cuda).contiguous()
+    return img, weights, sampler.flow_basis(h, w, cuda)
+
+
+@pytest.mark.parametrize("band", [0, 24])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tps_warp_kernel_matches_plain(cuda, monkeypatch, band, dtype):
+    monkeypatch.setenv("PARTSEG_WARP_BAND", str(band))
+    monkeypatch.setenv("PARTSEG_WARP_TILE", "480")            # 10 rows of 48: 4 bands
+    img, weights, basis = _warp_inputs(cuda)
+    kh, tile = band_config(dtype, 40, 48)
+    assert kh == band
+    before = tps_warp.launches
+    got = tps_warp(img.to(dtype), weights, basis)
+    want = tps_warp_plain(img.to(dtype).float(), weights, basis, kh, tile).to(dtype)
+    torch.cuda.synchronize()
+    assert tps_warp.launches == before + 1 and got.dtype == dtype
+    tol = 1e-4 if dtype == torch.float32 else 2 ** -8 + 1e-4   # one bf16 ulp below 1
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("mode", ["border", "zeros"])
+def test_bilinear_sample_kernel_matches_plain(cuda, mode):
+    img = torch.rand((2, 20, 30, 3), generator=torch.Generator().manual_seed(4)).to(cuda)
+    crd = (torch.rand((2, 700, 2), generator=torch.Generator().manual_seed(5)) * 2.6 - 1.3).to(cuda)
+    before = bilinear_sample_fused.launches
+    got = bilinear_sample(img, crd, mode, impl="fused")
+    want = bilinear_sample(img, crd, mode, impl="gather")
+    torch.cuda.synchronize()
+    assert bilinear_sample_fused.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+    got, want = _grad_pair(lambda i, c: bilinear_sample(i, c, mode, impl="fused"),
+                           lambda i, c: bilinear_sample(i, c, mode, impl="gather"), [img, crd])
+    _close_scaled(got, want)
+
+
+def test_tps_warp_grad_matches_plain(cuda):
+    img, weights, basis = _warp_inputs(cuda)
+    got, want = _grad_pair(lambda i, w: tps_warp(i, w, basis),
+                           lambda i, w: tps_warp_plain(i, w, basis), [img, weights])
+    _close_scaled(got, want)
+
+
+def test_train_period_on_card_matches_cpu(cuda):
+    """A tiny f32 config, one period from the same weights and draws: the
+    card (kernels) against the CPU (plain versions)."""
+    cfg = TrainConfig(
+        model=PartNetConfig(n_parts=3, img_size=32, features=16, depth=1, app_features=8,
+                            decoder_scales=2, decoder_out_size=16, stem_stride=2,
+                            dtype=torch.float32),
+        augment=AugmentConfig(tps_grid=3, warp_every=2, warp_fraction=0.5),
+        loss=LossConfig(vgg_layers=("relu1_2",), vgg_trim_blocks=1, vgg_resolution=16,
+                        swap_weight=0.5),
+        optim=OptimConfig(warmup_steps=10, decay_steps=100))
+    sampler = cfg.augment.make_sampler()
+    xs = [torch.rand((4, 32, 32, 3), generator=torch.Generator().manual_seed(i)) for i in (6, 7)]
+    draws = [sample_pair_draws(torch.Generator().manual_seed(8 + i), 4, sampler, cfg.augment)
+             for i in range(2)]
+    cpu_model = init_weights(PartNet(cfg.model, device="cpu"), seed=0)
+    out = {}
+    for dev in ("cpu", cuda):
+        model = PartNet(cfg.model, device=dev)
+        model.load_state_dict(cpu_model.state_dict())
+        dr = [type(d)(type(d.tps)(d.tps.weights.to(dev)),
+                      type(d.color)(*(getattr(d.color, f.name).to(dev)
+                                      for f in dataclasses.fields(d.color)))) for d in draws]
+        period = make_train_period(cfg, model, sampler, build_perceptual(cfg, dev))
+        state, m = period(create_state(cfg, model, step=5), tuple({"image": x.to(dev)} for x in xs),
+                          draws=dr)
+        out[str(dev)] = {k: v.item() for k, v in m.items()}
+    for k, v in out["cpu"].items():
+        assert abs(out["cuda"][k] - v) <= 1e-4 * max(abs(v), 1e-3), k

@@ -7,9 +7,14 @@ package's own tests run it) and against the JAX plain path
 on a card: tests/test_torch_cuda.py holds them against these plain
 versions there (and chip_smoke.py at the serving shapes).
 
+Both wrappers are autograd Functions whose backward is the JAX
+``custom_vjp``'s closed form; their VJPs are held against ``jax.vjp`` of
+the Pallas kernels here.
+
 Tolerances: 1e-5 absolute for μ, Σ and the render output (f32 sums of
 H·W or K terms in another order); parts rtol 1e-5 (one exp and one
-division per element).
+division per element); cotangents 1e-5 of their largest entry (the same
+sums, backwards).
 """
 
 import jax
@@ -68,6 +73,61 @@ def test_softmax_moments_matches_jax(delta):
     assert all(v.dtype == torch.float32 and torch.isfinite(v).all() for v in (parts, mu, sigma))
     lam = precision_from_cov(sigma)
     assert torch.isfinite(lam).all()
+
+
+def _close(got, want):
+    want = np.asarray(want, np.float32)
+    np.testing.assert_allclose(n(got.float()), want, atol=1e-5 * max(np.abs(want).max(), 1e-30))
+
+
+@pytest.mark.parametrize("delta", [False, True])
+@pytest.mark.parametrize("only_mu", [False, True])
+def test_softmax_moments_vjp_matches_jax(delta, only_mu):
+    """The wrapper's outputs carry its Function; the logit cotangent through
+    the strided foreground slice equals jax.vjp of the Pallas kernel's."""
+    x = _logits(20, delta=delta)
+    k = x.shape[-1] - 1
+    rng = np.random.default_rng(21)
+    g = [rng.standard_normal(s).astype(np.float32) for s in ((2, 16, 16, k), (2, k, 2), (2, k, 2, 2))]
+    if only_mu:
+        g[0], g[2] = np.zeros_like(g[0]), np.zeros_like(g[2])
+    xt = t(x).requires_grad_()
+    outs = softmax_moments(xt[..., :k])
+    assert {type(o.grad_fn).__name__ for o in outs} == {"_SoftmaxMomentsBackward"}
+    if only_mu:
+        (got,) = torch.autograd.grad(outs[1], xt, t(g[1]))
+    else:
+        (got,) = torch.autograd.grad(outs, xt, [t(v) for v in g])
+    _, vjp = jax.vjp(lambda v: jax_softmax_moments(v[..., :k]), jnp.asarray(x))
+    (want,) = vjp(tuple(jnp.asarray(v) for v in g))
+    _close(got, want)
+    assert not got[..., k].abs().any()                      # the background channel
+
+
+@pytest.mark.parametrize("kernel", ["gauss", "heavy_tail"])
+@pytest.mark.parametrize("app_dtype", [torch.float32, torch.bfloat16])
+def test_render_assemble_vjp_matches_jax(kernel, app_dtype):
+    mu, _, lam, app = _render_inputs(22)
+    if app_dtype == torch.bfloat16:                        # both sides see the rounded values
+        app = np.asarray(torch.from_numpy(app).to(torch.bfloat16).float())
+    h, w = 8, 12
+    g = np.random.default_rng(23).standard_normal((2, h, w, app.shape[-1])).astype(np.float32)
+    args = [t(mu).requires_grad_(), t(lam).requires_grad_(), t(app).to(app_dtype).requires_grad_()]
+    out = render_assemble(*args, h, w, kernel)
+    assert type(out.grad_fn).__name__ == "_RenderAssembleBackward"
+    got = torch.autograd.grad(out, args, t(g))
+    japp = jnp.asarray(app, jnp.bfloat16 if app_dtype == torch.bfloat16 else jnp.float32)
+    _, vjp = jax.vjp(lambda m, l, a: jax_render_assemble(m, l, a, h, w, kernel), mu, lam, japp)
+    d_mu, d_lam, d_app = vjp(jnp.asarray(g))
+    _close(got[0], d_mu)
+    _close(got[1], d_lam)
+    # d_app comes back in the appearance dtype on both sides: at bf16 the
+    # two f32 sums may round to neighbouring bf16 values (2⁻⁸ relative).
+    d_app = np.asarray(d_app, np.float32)
+    np.testing.assert_allclose(n(got[2].float()), d_app, rtol=2 ** -8,
+                               atol=1e-5 * np.abs(d_app).max())
+    assert got[2].dtype == app_dtype
+    assert not got[1][..., 1, 0].any()                     # off-diagonal cotangent on [0, 1]
 
 
 def test_softmax_moments_rejects_what_the_kernel_does_not_take():
@@ -139,5 +199,6 @@ def test_kernel_modules_import_and_run_on_cpu_without_building():
     assert (softmax_moments.launches, render_assemble.launches) == before
     assert _build.library.cache_info().currsize == 0
     assert sorted(p.name for p in _build.CSRC_DIR.glob("*.cu")) == [
-        "errors.cu", "render_assemble.cu", "softmax_moments.cu"]
+        "bilinear_sample.cu", "errors.cu", "render_assemble.cu", "softmax_moments.cu",
+        "tps_warp.cu"]
     assert "arch=compute_90a,code=sm_90a" in _build.COMPILE_FLAGS

@@ -17,6 +17,7 @@ import torch
 
 from partseg_tpu.models.blocks import ConvBlock as JConvBlock
 from partseg_tpu.models.blocks import ResBlock as JResBlock
+from partseg_tpu.models.blocks import f8_store as jax_f8_store
 from partseg_tpu.models.blocks import quantize_activation as jax_quantize
 from partseg_tpu.models.decoder import Decoder as JDecoder
 from partseg_tpu.models.encoders import AppearanceEncoder as JAppearanceEncoder
@@ -35,7 +36,7 @@ from partseg_tpu_torch.models import (
     ShapeEncoder,
     init_weights,
 )
-from partseg_tpu_torch.models.blocks import quantize_activation
+from partseg_tpu_torch.models.blocks import f8_store, quantize_activation
 from partseg_tpu_torch.models.encoders import _Stem
 from _torch_parity import TINY, images, jax_partnet, n, t, torch_partnet
 
@@ -191,6 +192,22 @@ def test_quantize_activation_f8_round_trip():
     np.testing.assert_array_equal(n(quantize_activation(t(x), "none")), x)
     with pytest.raises(ValueError):
         quantize_activation(t(x), "int4")
+
+
+def test_f8_store_passes_the_gradient_straight_through():
+    """A 1e-5 cotangent (below e4m3's smallest subnormal, 2⁻⁹) comes back
+    unchanged, as jax.grad of the JAX f8_store gives; rounding it through
+    float8 as a plain cast's backward does would flush it to 0."""
+    x = (4 * _feats(12, 8)).astype(np.float32)
+    xt = t(x).requires_grad_()
+    (got,) = torch.autograd.grad(quantize_activation(xt, "f8"), xt, torch.full_like(xt, 1e-5))
+    want = jax.grad(lambda v: jnp.sum(jax_f8_store(v) * 1e-5))(jnp.asarray(x))
+    np.testing.assert_array_equal(n(got), np.asarray(want))
+    assert (got == torch.tensor(1e-5)).all()
+    np.testing.assert_array_equal(n(f8_store(t(x))), np.asarray(jax_f8_store(jnp.asarray(x))))
+    (cast,) = torch.autograd.grad(xt.to(torch.float8_e4m3fn).to(torch.float32), xt,
+                                  torch.full_like(xt, 1e-5))
+    assert not cast.any()
 
 
 def test_init_weights_is_seeded_and_scaled():

@@ -3,6 +3,7 @@
 and check them.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --baseline DIR   # kernels against another checkout's
 
 Phases (one JSON line each; any failure exits non-zero):
   1. device       — require CUDA; print nvidia-smi's name and power limit.
@@ -13,7 +14,9 @@ Phases (one JSON line each; any failure exits non-zero):
                     the warp kernels (phase kernels_warp) at the speed128
                     training shapes.
   4. backward     — each kernel wrapper's autograd backward against
-                    torch.autograd.grad through its plain version, f32.
+                    torch.autograd.grad through its plain version, f32;
+                    render_assemble's backward kernel also against its
+                    closed form (render_assemble_vjp), f32 and bf16.
   5. serving      — the CelebA model (full width, bf16, seeded random
                     weights, use_pallas=True) answers B = 256 inference and
                     transfer requests; the launch counters show the path
@@ -28,19 +31,30 @@ Phases (one JSON line each; any failure exits non-zero):
                     padding_mode "zeros", which goes through bilinear_sample.
   8. train_parity — the same config at f32, B = 2, one period from the same
                     state and draws: card against CPU, gradients included.
-  9. timing       — CUDA-event medians of each kernel, its plain version,
-                    its backward and the end-to-end requests and train
-                    period; bounds from the H100's peaks.
+  9. timing       — each kernel's device time per call (torch.profiler,
+                    host excluded) and its wrapper's CUDA-event median
+                    (host included), at the serving and the training
+                    shapes; its plain version, its backward and the
+                    library call where there is one; the end-to-end
+                    requests and train period; bounds from the H100's
+                    peaks.
  10. profile      — torch.profiler device time by kernel family over one
                     infer, one transfer request and one train period, and
                     the device's idle share.
 Then the kernels line, nvidia-smi's line, and the final status line.
+
+With --baseline DIR (DIR holds another checkout of the repo, such as a
+`git archive` of an earlier commit unpacked into a gitignored directory)
+it runs only device, build and turns: both checkouts' csrc/ built into two
+libraries, and each kernel's C entry point of both called on the same
+inputs, device time per call in the order baseline, this, this, baseline.
 
 Imports nothing of JAX: it needs only this checkout, PyTorch and nvcc.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import math
@@ -48,6 +62,7 @@ import os
 import statistics
 import subprocess
 import time
+from pathlib import Path
 
 import torch
 import torch.nn.functional as F
@@ -63,7 +78,9 @@ from partseg_tpu_torch.partops.kernels import (
     bilinear_sample_fused,
     bilinear_sample_plain,
     render_assemble,
+    render_assemble_backward,
     render_assemble_plain,
+    render_assemble_vjp,
     reset_launch_counts,
     softmax_moments,
     softmax_moments_plain,
@@ -83,6 +100,7 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 TIMING_RUNS = 20
 KERNEL_INNER = 10             # back-to-back launches per timed run of one kernel
+PROFILE_CALLS = 20            # calls per torch.profiler window of one kernel
 
 
 class SmokeError(RuntimeError):
@@ -128,6 +146,25 @@ def event_ms(fn, inner: int = 1, runs: int = TIMING_RUNS, warmup: int = 3) -> fl
     return statistics.median(s.elapsed_time(e) / inner for s, e in pairs)
 
 
+def device_ms(fn, calls: int = PROFILE_CALLS, warmup: int = 3) -> float:
+    """Device time of one call of ``fn``: the self time of every kernel,
+    memset and copy it runs on the card, from torch.profiler (CUPTI), over
+    ``calls`` calls after a warm-up. The host's time is not in it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    check(us > 0, "torch.profiler recorded no device time")
+    return us / calls / 1e3
+
+
 # ----------------------------------------------------------------- inputs
 
 def serving_logits(gen: torch.Generator, k: int, size: int, delta: bool = False):
@@ -142,6 +179,23 @@ def serving_logits(gen: torch.Generator, k: int, size: int, delta: bool = False)
         ki = torch.arange(k, device="cuda")[None, :].expand(BATCH, k)
         logits[bi, ys, xs, ki] = 60.0
     return logits[..., :k]
+
+
+def train_render_inputs(gen, app_dtype=torch.float32, batch=TRAIN_BATCH):
+    """speed128's decoder inputs: f32 logits [B, 32, 32, K+1], μ and Λ from
+    their moments, and one appearance [B, K, f] per decoder scale, as
+    (logits, mu, lam, [(res, app)])."""
+    cfg = train_config("speed128").model
+    m, k = cfg.map_size, cfg.n_parts
+    logits = 3.0 * torch.randn((batch, m, m, k + 1), generator=gen, device="cuda")
+    _, mu, sigma = softmax_moments_plain(logits[..., :k])
+    lam = precision_from_cov(sigma).contiguous()
+    scales = []
+    for i, f in enumerate(cfg.decoder_features):
+        res = cfg.decoder_out_size // 2 ** (cfg.decoder_scales - 1 - i)
+        app = 0.5 * torch.randn((batch, k, f), generator=gen, device="cuda")
+        scales.append((res, app.to(app_dtype)))
+    return logits, mu.contiguous(), lam, scales
 
 
 def render_cases(cfg, mu, sigma, gen):
@@ -168,6 +222,14 @@ def softmax_moments_bound(b, h, w, k):
 def render_assemble_bound(b, k, f, res):
     bytes_ = 4 * b * k * 2 + 4 * b * k * 4 + 2 * b * k * f + 4 * b * res * res * f
     flops = b * res * res * k * (2 * f + 12)            # φ (~12) + Σ_k φ·a (2 per channel)
+    return bytes_, flops
+
+
+def render_backward_bound(b, k, f, res):
+    # Read μ, Λ, a (bf16) and the f32 cotangent g once; write d_μ, d_Λ, d_a.
+    bytes_ = (4 * b * k * 6 + 2 * b * k * f + 4 * b * res * res * f
+              + 4 * b * k * 6 + 2 * b * k * f)
+    flops = b * res * res * k * (4 * f + 24)   # g_φ and d_a: 2 per channel each; φ, g_d, 5 sums
     return bytes_, flops
 
 
@@ -350,18 +412,9 @@ def _scaled_err(got, want) -> float:
 def backward_cases(gen, batch=TRAIN_BATCH):
     """(name, fn, inputs, cotangent-shaped output) at the speed128 training
     shapes: each fn maps the inputs (requiring grad) to its outputs."""
-    cfg = train_config("speed128")
-    m, k = cfg.model.map_size, cfg.model.n_parts
-    logits = 3.0 * torch.randn((batch, m, m, k + 1), generator=gen, device="cuda")
+    k = train_config("speed128").model.n_parts
+    logits, mu, lam, render = train_render_inputs(gen, batch=batch)
     img, weights, basis, coords = warp_inputs(gen)
-    _, mu, sigma = softmax_moments_plain(logits[..., :k])
-    lam = precision_from_cov(sigma).contiguous()
-    out = cfg.model.decoder_out_size
-    render = []
-    for i, f in enumerate(cfg.model.decoder_features):
-        res = out // 2 ** (cfg.model.decoder_scales - 1 - i)
-        app = 0.5 * torch.randn((batch, k, f), generator=gen, device="cuda")
-        render.append((res, app))
     return {
         "softmax_moments": (lambda x: softmax_moments(x[..., :k]),
                             lambda x: softmax_moments_plain(x[..., :k]), [logits]),
@@ -370,7 +423,7 @@ def backward_cases(gen, batch=TRAIN_BATCH):
                                       zip(render, apps)],
             lambda mu_, lam_, *apps: [render_assemble_plain(mu_, lam_, a, r, r) for (r, _), a in
                                       zip(render, apps)],
-            [mu.contiguous(), lam] + [a for _, a in render]),
+            [mu, lam] + [a for _, a in render]),
         "tps_warp": (lambda im, w: tps_warp(im, w, basis),
                      lambda im, w: tps_warp_plain(im, w, basis), [img, weights]),
         "bilinear_sample": (bilinear_sample_fused, lambda im, c: bilinear_sample_plain(im, c),
@@ -398,18 +451,50 @@ def phase_backward() -> dict:
     through its plain version, f32, TF32 off, at the training shapes.
     Tolerance 1e-4 of each cotangent's largest entry: the backwards sum
     over H·W (and channels) in another order — with atomics in no fixed
-    order for the image cotangents of the warps."""
+    order for the image cotangents of the warps. Then render_assemble's
+    backward kernel against its closed form on the same cotangents, f32
+    and bf16 appearance: 1e-5 of each cotangent's largest (the same f32
+    products summed in another order); a bf16 d_app may round to the
+    neighbouring bf16 value (one ulp: rtol 2⁻⁷)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
     report = {}
     for name, (fn, plain, inputs) in backward_cases(gen).items():
+        before = render_assemble.backward_launches
         got = _grads(fn, inputs, SEED + 12)
+        launched = render_assemble.backward_launches - before
         want = _grads(plain, inputs, SEED + 12)
         torch.cuda.synchronize()
         errs = [_scaled_err(a, b) for a, b in zip(got, want)]
         report[name] = errs
         check(all(math.isfinite(e) and e <= 1e-4 for e in errs),
               f"{name} backward disagrees with autograd through the plain version: {errs}")
-    emit("backward", scaled_max_abs_err=report, tolerance="1e-4 of each cotangent's max")
+        if name == "render_assemble":
+            check(launched == len(inputs) - 2,
+                  f"render_assemble backward kernel launched {launched} times, expected "
+                  f"{len(inputs) - 2} (one per scale)")
+    kind = train_config("speed128").model.render_kernel
+    closed = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        _, mu, lam, scales = train_render_inputs(gen, app_dtype=dtype)
+        for res, app in scales:
+            g = torch.randn((TRAIN_BATCH, res, res, app.shape[-1]), generator=gen, device="cuda")
+            got = render_assemble_backward(mu, lam, app, res, res, kind, g)
+            want = render_assemble_vjp(mu, lam, app, res, res, kind, g)
+            again = render_assemble_backward(mu, lam, app, res, res, kind, g)
+            torch.cuda.synchronize()
+            errs = [_scaled_err(a, b) for a, b in zip(got, want)]
+            closed[f"{res}x{app.shape[-1]} {str(dtype)[6:]}"] = errs
+            check(all(math.isfinite(e) for e in errs) and max(errs[:2]) <= 1e-5,
+                  f"render_assemble backward kernel vs closed form {res} {dtype}: {errs}")
+            scale = want[2].float().abs().max().item()
+            check(torch.allclose(got[2].float(), want[2].float(), atol=1e-5 * scale,
+                                 rtol=0 if dtype == torch.float32 else 2 ** -7),
+                  f"render_assemble backward kernel d_app {res} {dtype}: {errs[2]}")
+            check(got[2].dtype == dtype and all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"render_assemble backward kernel {res} {dtype}: dtype or repeat differs")
+    report["render_assemble_kernel_vs_closed_form"] = closed
+    emit("backward", scaled_max_abs_err=report, tolerance="1e-4 of each cotangent's max",
+         tolerance_kernel_vs_closed_form="1e-5 of each cotangent's max; bf16 d_app rtol 2^-7")
     return report
 
 
@@ -488,13 +573,14 @@ def phase_parity(cfg) -> None:
 
 
 TRAIN_LAUNCHES = {"tps_warp": 1, "softmax_moments": 4, "render_assemble": 6,
-                  "bilinear_sample": 0}
+                  "bilinear_sample": 0, "render_assemble_backward": 6}
 
 
 def launch_counts() -> dict:
     return {"softmax_moments": softmax_moments.launches,
             "render_assemble": render_assemble.launches,
-            "tps_warp": tps_warp.launches, "bilinear_sample": bilinear_sample_fused.launches}
+            "tps_warp": tps_warp.launches, "bilinear_sample": bilinear_sample_fused.launches,
+            "render_assemble_backward": render_assemble.backward_launches}
 
 
 def phase_train() -> dict:
@@ -629,9 +715,13 @@ def _profile_one(name: str, fn, batch: int) -> None:
         busy[cat] = busy.get(cat, 0.0) + us / 1e3
     total = sum(busy.values())
     top = sorted(kernels, key=lambda e: -getattr(e, "self_device_time_total", 0.0))[:10]
-    # Where the host's time goes: the CPU-side ops by their own time.
+    # Where the host's time goes: the CPU-side ops by their own time, and
+    # each kernel Function's backward node with what it calls.
     host = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CPU]
     top_host = sorted(host, key=lambda e: -e.self_cpu_time_total)[:10]
+    backward_nodes = {e.key: {"cpu_ms": e.cpu_time_total / 1e3, "calls": e.count} for e in host
+                      if e.key in ("_SoftmaxMomentsBackward", "_RenderAssembleBackward",
+                                   "_TPSWarpBackward", "_BilinearSampleBackward")}
     emit("profile", request=name, batch=batch, wall_ms=wall_ms,
          device_ms=total, idle_share=(1 - total / wall_ms) if wall_ms > 0 else None,
          kernel_launches=sum(e.count for e in kernels),
@@ -639,7 +729,8 @@ def _profile_one(name: str, fn, batch: int) -> None:
          top_kernels=[{"name": e.key[:90], "ms": e.self_device_time_total / 1e3,
                        "calls": e.count} for e in top],
          top_host_ops=[{"name": e.key[:60], "self_cpu_ms": e.self_cpu_time_total / 1e3,
-                        "calls": e.count} for e in top_host])
+                        "calls": e.count} for e in top_host],
+         backward_nodes=backward_nodes)
 
 
 def phase_profile(served: dict, trained: dict) -> None:
@@ -674,45 +765,95 @@ def phase_train_zeros() -> dict:
     return launches
 
 
+def _timed(fn, plain, bound) -> dict:
+    """ms: the wrapper's CUDA-event median over back-to-back calls (host
+    included); device_ms: its kernels' own time per call (profiler);
+    plain_ms: the plain version's event median; bound_ms from (bytes, flops)."""
+    row = {"ms": event_ms(fn, inner=KERNEL_INNER), "device_ms": device_ms(fn),
+           "plain_ms": event_ms(plain, inner=KERNEL_INNER)}
+    row["bound_ms"], row["bound_by"] = bound_ms(*bound)
+    return row
+
+
+def _decode_rows(scales: list[dict]) -> dict:
+    """One decode: the sum over its scales of each time, bytes-bound if
+    every scale is."""
+    out = {key: sum(s[key] for s in scales) for key in ("ms", "device_ms", "plain_ms", "bound_ms")}
+    out["bound_by"] = "bytes" if all(s["bound_by"] == "bytes" for s in scales) else "operations"
+    return out
+
+
 def phase_timing(cfg, served: dict, trained: dict, zeros_launches: dict, errs: dict,
                  smi: str) -> list[dict]:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     k, size = cfg.n_parts, cfg.map_size
     fg = serving_logits(gen, k, size)
-    sm_ms = event_ms(lambda: softmax_moments(fg), inner=KERNEL_INNER)
-    sm_plain = event_ms(lambda: softmax_moments_plain(fg), inner=KERNEL_INNER)
-    sm_bound, sm_by = bound_ms(*softmax_moments_bound(BATCH, size, size, k))
+    sm = _timed(lambda: softmax_moments(fg), lambda: softmax_moments_plain(fg),
+                softmax_moments_bound(BATCH, size, size, k))
 
     _, mu, sigma = softmax_moments(fg)
+    kind = cfg.render_kernel
     scales = []
     for name, mu_, lam, app, res in render_cases(cfg, mu, sigma, gen):
-        f = app.shape[-1]
-        ms = event_ms(lambda: render_assemble(mu_, lam, app, res, res, cfg.render_kernel),
-                      inner=KERNEL_INNER)
-        plain = event_ms(lambda: render_assemble_plain(mu_, lam, app, res, res, cfg.render_kernel),
-                         inner=KERNEL_INNER)
-        b_ms, by = bound_ms(*render_assemble_bound(BATCH, k, f, res))
-        scales.append({"scale": name, "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": by})
+        row = _timed(lambda: render_assemble(mu_, lam, app, res, res, kind),
+                     lambda: render_assemble_plain(mu_, lam, app, res, res, kind),
+                     render_assemble_bound(BATCH, k, app.shape[-1], res))
+        scales.append({"scale": name, **row})
     emit("timing_render_assemble_scales", batch=BATCH, scales=scales, nvidia_smi=smi)
+
+    # The training shapes: B = 128, the speed128 maps and decoder (bf16
+    # appearance, as the bf16 step passes it).
+    tcfg_m = train_config("speed128").model
+    tk = tcfg_m.n_parts
+    tlogits, tmu, tlam, tscales = train_render_inputs(gen, app_dtype=torch.bfloat16)
+    tfg = tlogits[..., :tk]
+    tm = tfg.shape[1]
+    sm_train = _timed(lambda: softmax_moments(tfg), lambda: softmax_moments_plain(tfg),
+                      softmax_moments_bound(TRAIN_BATCH, tm, tm, tk))
+    train_scales = []
+    for res, app in tscales:
+        row = _timed(lambda: render_assemble(tmu, tlam, app, res, res, tcfg_m.render_kernel),
+                     lambda: render_assemble_plain(tmu, tlam, app, res, res, tcfg_m.render_kernel),
+                     render_assemble_bound(TRAIN_BATCH, tk, app.shape[-1], res))
+        train_scales.append({"scale": f"{res}x{app.shape[-1]}", **row})
+    ra_train = _decode_rows(train_scales)
+    # The backward per training decode: the kernel pair against the plain
+    # closed form, device time; the bound is one read of g.
+    cots = [torch.randn((TRAIN_BATCH, res, res, app.shape[-1]), generator=gen, device="cuda")
+            for res, app in tscales]
+
+    def decode_backward(fn):
+        return lambda: [fn(tmu, tlam, app, res, res, tcfg_m.render_kernel, g)
+                        for (res, app), g in zip(tscales, cots)]
+
+    ra_bwd = {"device_ms": device_ms(decode_backward(render_assemble_backward)),
+              "plain_device_ms": device_ms(decode_backward(render_assemble_vjp)),
+              "bound_ms": sum(bound_ms(*render_backward_bound(TRAIN_BATCH, tk, app.shape[-1],
+                                                              res))[0]
+                              for res, app in tscales)}
+    emit("timing_training_shapes", batch=TRAIN_BATCH, softmax_moments=sm_train,
+         render_assemble_scales=train_scales, render_assemble_backward=ra_bwd, nvidia_smi=smi)
 
     # The warp kernels at the training shapes, bf16 as the step runs them.
     img, weights, basis, coords = warp_inputs(gen, torch.bfloat16)
     nw, s = img.shape[0], img.shape[1]
     m = weights.shape[1]
-    tw_ms = event_ms(lambda: tps_warp(img, weights, basis), inner=KERNEL_INNER)
-    tw_plain = event_ms(lambda: tps_warp_plain(img, weights, basis), inner=KERNEL_INNER)
-    tw_bound, tw_by = bound_ms(*tps_warp_bound(nw, s, s, 3, m, 2))
-    bs_ms = event_ms(lambda: bilinear_sample_fused(img, coords), inner=KERNEL_INNER)
-    bs_plain = event_ms(lambda: bilinear_sample_plain(img, coords), inner=KERNEL_INNER)
-    bs_bound, bs_by = bound_ms(*bilinear_bound(nw, s * s, 3, 2, s * s))
+    tw = _timed(lambda: tps_warp(img, weights, basis), lambda: tps_warp_plain(img, weights, basis),
+                tps_warp_bound(nw, s, s, 3, m, 2))
+    bs = _timed(lambda: bilinear_sample_fused(img, coords),
+                lambda: bilinear_sample_plain(img, coords), bilinear_bound(nw, s * s, 3, 2, s * s))
+    bs["grads_device_ms"] = device_ms(lambda: sample_with_grads(img, coords))
     grid = coords.flip(-1)[:, None].to(img.dtype).contiguous()
     nchw = img.permute(0, 3, 1, 2)
-    bs_lib = event_ms(lambda: F.grid_sample(nchw, grid, mode="bilinear", padding_mode="border",
-                                            align_corners=False), inner=KERNEL_INNER)
-    emit("timing_warp_kernels", images=nw, size=s, dtype="bfloat16",
-         tps_warp={"ms": tw_ms, "plain_ms": tw_plain, "bound_ms": tw_bound},
-         bilinear_sample={"ms": bs_ms, "plain_ms": bs_plain, "bound_ms": bs_bound,
-                          "library_ms_grid_sample": bs_lib}, nvidia_smi=smi)
+
+    def grid_sample():
+        return F.grid_sample(nchw, grid, mode="bilinear", padding_mode="border",
+                             align_corners=False)
+
+    bs["library_ms"] = event_ms(grid_sample, inner=KERNEL_INNER)
+    bs["library_device_ms"] = device_ms(grid_sample)
+    emit("timing_warp_kernels", images=nw, size=s, dtype="bfloat16", tps_warp=tw,
+         bilinear_sample=bs, nvidia_smi=smi)
 
     # Each Function's backward at the training shapes (f32 inputs).
     bwd = {}
@@ -743,34 +884,43 @@ def phase_timing(cfg, served: dict, trained: dict, zeros_launches: dict, errs: d
          train_img_per_s=images / period_ms * 1e3,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, nvidia_smi=smi)
 
-    ra_by = "bytes" if all(s["bound_by"] == "bytes" for s in scales) else "operations"
+    ra = _decode_rows(scales)
     train = trained["launches"]
+
+    def train_shape(row: dict) -> dict:
+        return {"train_" + key: row[key] for key in ("ms", "device_ms", "plain_ms", "bound_ms")}
+
     return [
         {"name": "softmax_moments", "route": "cuda",
          "source": "partseg_tpu_torch/csrc/softmax_moments.cu",
          "replaces": "partseg_tpu/partops/pallas/softmax_moments.py:73",
          "launches": train["softmax_moments"], "path": "speed128 train period",
          "launches_serving": served["launches"]["softmax_moments"],
-         "max_abs_err": errs["softmax_moments"], "ms": sm_ms, "plain_ms": sm_plain,
-         "bound_ms": sm_bound, "bound_by": sm_by, "library_ms": None,
+         "max_abs_err": errs["softmax_moments"], "ms": sm["ms"], "device_ms": sm["device_ms"],
+         "plain_ms": sm["plain_ms"], "bound_ms": sm["bound_ms"], "bound_by": sm["bound_by"],
+         "library_ms": None, "library_device_ms": None, **train_shape(sm_train),
          "backward_ms": bwd["softmax_moments"]["ms"],
-         "per": f"one call, logits [{BATCH},{size},{size},{k}] of [..,{k + 1}]"},
+         "per": f"one call, logits [{BATCH},{size},{size},{k}] of [..,{k + 1}]; train_*: "
+                f"[{TRAIN_BATCH},{tm},{tm},{tk}]"},
         {"name": "render_assemble", "route": "cuda",
          "source": "partseg_tpu_torch/csrc/render_assemble.cu",
          "replaces": "partseg_tpu/partops/pallas/render_assemble.py:121",
          "launches": train["render_assemble"], "path": "speed128 train period",
          "launches_serving": served["launches"]["render_assemble"],
-         "max_abs_err": errs["render_assemble"],
-         "ms": sum(s["ms"] for s in scales), "plain_ms": sum(s["plain_ms"] for s in scales),
-         "bound_ms": sum(s["bound_ms"] for s in scales), "bound_by": ra_by,
-         "library_ms": None, "backward_ms": bwd["render_assemble"]["ms"],
-         "per": f"one decode: {len(scales)} launches at B={BATCH}"},
+         "max_abs_err": errs["render_assemble"], **ra,
+         "library_ms": None, "library_device_ms": None, **train_shape(ra_train),
+         "backward_route": "cuda", "backward_launches": train["render_assemble_backward"],
+         "backward_ms": bwd["render_assemble"]["ms"],
+         "backward_device_ms": ra_bwd["device_ms"],
+         "backward_plain_device_ms": ra_bwd["plain_device_ms"],
+         "backward_bound_ms": ra_bwd["bound_ms"],
+         "per": f"one decode: {len(scales)} launches at B={BATCH}; train_* and backward_*: "
+                f"{len(tscales)} scales at B={TRAIN_BATCH}"},
         {"name": "tps_warp", "route": "cuda",
          "source": "partseg_tpu_torch/csrc/tps_warp.cu",
          "replaces": "partseg_tpu/partops/pallas/bilinear_warp.py:392",
          "launches": train["tps_warp"], "path": "speed128 train period",
-         "max_abs_err": errs["tps_warp"], "ms": tw_ms, "plain_ms": tw_plain,
-         "bound_ms": tw_bound, "bound_by": tw_by, "library_ms": None,
+         "max_abs_err": errs["tps_warp"], **tw, "library_ms": None, "library_device_ms": None,
          "backward_ms": bwd["tps_warp"]["ms"],
          "per": f"one call, image [{nw},{s},{s},3] bf16 (band mode: the same kernel)"},
         {"name": "bilinear_sample", "route": "cuda",
@@ -779,17 +929,119 @@ def phase_timing(cfg, served: dict, trained: dict, zeros_launches: dict, errs: d
          "launches": zeros_launches["bilinear_sample"],
          "path": "speed128 train period with augment.padding_mode=zeros",
          "launches_speed128": train["bilinear_sample"],
-         "max_abs_err": errs["bilinear_sample"], "ms": bs_ms, "plain_ms": bs_plain,
-         "bound_ms": bs_bound, "bound_by": bs_by, "library_ms": bs_lib,
+         "max_abs_err": errs["bilinear_sample"], **bs,
          "backward_ms": bwd["bilinear_sample"]["ms"],
          "per": f"one call, image [{nw},{s},{s},3] bf16 at {s * s} points each"},
     ]
 
 
+def phase_turns(cfg, baseline: Path, smi: str) -> None:
+    """The baseline checkout's kernels against this checkout's: each C
+    entry point of both libraries called on the same inputs, device time
+    per call in the order baseline, this, this, baseline. softmax_moments
+    and tps_warp did not change, so their turns show the same-code spread.
+    render_assemble's backward has no kernel in an older baseline: there the
+    baseline side is the plain closed form (render_assemble_vjp), which the
+    wrapper ran on the card before. F.grid_sample is timed beside
+    bilinear_sample."""
+    old = _build.library(baseline / "partseg_tpu_torch" / "csrc")
+    new = _build.library()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    launch = _build.launch
+
+    def turns(case: str, make, **extra) -> None:
+        a, b = make(old), make(new)
+        ms = [device_ms(a), device_ms(b), device_ms(b), device_ms(a)]
+        emit("turns", case=case, baseline_device_ms=[ms[0], ms[3]], device_ms=[ms[1], ms[2]],
+             nvidia_smi=smi, **extra)
+
+    def softmax_call(logits):
+        b, h, w, k = logits.shape
+        parts = torch.empty((b, h, w, k), device=dev)
+        raw = torch.empty((b, k, 5), device=dev)
+        return lambda lib: lambda: launch(
+            "partseg_softmax_moments_f32", dev, logits.data_ptr(), parts.data_ptr(),
+            raw.data_ptr(), b, h, w, k, logits.stride(2), lib=lib)
+
+    def render_call(mu, lam, scales, gauss):
+        outs = [torch.empty((mu.shape[0], res, res, app.shape[-1]), device=dev)
+                for res, app in scales]
+
+        def make(lib):
+            def run():
+                for (res, app), out in zip(scales, outs):
+                    b, k, c = app.shape
+                    launch("partseg_render_assemble", dev, mu.data_ptr(), lam.data_ptr(),
+                           app.data_ptr(), int(app.dtype == torch.bfloat16), out.data_ptr(),
+                           b, k, c, res, res, gauss, lib=lib)
+            return run
+        return make
+
+    k, size = cfg.n_parts, cfg.map_size
+    turns("softmax_moments serving", softmax_call(serving_logits(gen, k, size)))
+    tlogits, tmu, tlam, tscales = train_render_inputs(gen, app_dtype=torch.bfloat16)
+    turns("softmax_moments training", softmax_call(tlogits[..., :k]))
+
+    _, mu, sigma = softmax_moments_plain(serving_logits(gen, k, size))
+    cases = render_cases(cfg, mu.contiguous(), sigma, gen)
+    gauss = int(cfg.render_kernel == "gauss")
+    turns("render_assemble serving decode",
+          render_call(cases[0][1], cases[0][2], [(res, app) for *_, app, res in cases], gauss))
+    tkind = train_config("speed128").model.render_kernel
+    turns("render_assemble training decode",
+          render_call(tmu, tlam, tscales, int(tkind == "gauss")))
+    cots = [torch.randn((TRAIN_BATCH, res, res, app.shape[-1]), generator=gen, device="cuda")
+            for res, app in tscales]
+
+    def backward(lib):
+        fn = render_assemble_vjp if lib is old else render_assemble_backward
+        return lambda: [fn(tmu, tlam, app, res, res, tkind, g)
+                        for (res, app), g in zip(tscales, cots)]
+
+    turns("render_assemble backward training decode (baseline: render_assemble_vjp)", backward)
+
+    img, weights, basis, coords = warp_inputs(gen, torch.bfloat16)
+    nw, s = img.shape[0], img.shape[1]
+    m = weights.shape[1]
+    kh, tile = band_config(img.dtype, s, s)
+    warped = torch.empty_like(img)
+    turns("tps_warp training", lambda lib: lambda: launch(
+        "partseg_tps_warp", dev, img.data_ptr(), 1, weights.data_ptr(), basis.data_ptr(),
+        warped.data_ptr(), nw, s, s, 3, m, tile, kh, lib=lib))
+    n = coords.shape[1]
+    out = torch.empty((nw, n, 3), device=dev, dtype=img.dtype)
+    outs = [torch.empty((nw, n, 3), device=dev) for _ in range(3)]
+    grid = coords.flip(-1)[:, None].to(img.dtype).contiguous()
+    nchw = img.permute(0, 3, 1, 2)
+
+    def grid_sample():
+        return F.grid_sample(nchw, grid, mode="bilinear", padding_mode="border",
+                             align_corners=False)
+
+    library = [device_ms(grid_sample)]
+    turns("bilinear_sample training", lambda lib: lambda: launch(
+        "partseg_bilinear_sample", dev, img.data_ptr(), 1, coords.data_ptr(), out.data_ptr(),
+        None, None, nw, s, s, 3, n, 0, lib=lib))
+    turns("bilinear_sample grads variant training", lambda lib: lambda: launch(
+        "partseg_bilinear_sample", dev, img.data_ptr(), 1, coords.data_ptr(), outs[0].data_ptr(),
+        outs[1].data_ptr(), outs[2].data_ptr(), nw, s, s, 3, n, 1, lib=lib))
+    library.append(device_ms(grid_sample))
+    emit("turns", case="F.grid_sample training (library)", device_ms=library, nvidia_smi=smi)
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--baseline", type=Path, default=None,
+                        help="another checkout of the repo: time its kernels against these")
+    args = parser.parse_args()
     smi = phase_device()
     phase_build()
     cfg = model_config("celeba", use_pallas=True)
+    if args.baseline is not None:
+        phase_turns(cfg, args.baseline, smi)
+        print(smi, flush=True)
+        return 0
     errs = phase_kernels(cfg)
     errs.update(phase_warp_kernels())
     phase_backward()

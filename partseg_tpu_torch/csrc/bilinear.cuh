@@ -60,4 +60,37 @@ struct Quad {
   }
 };
 
+// The four taps of one point as element offsets into an NHWC image, and
+// its lerp weights: computed once per point, then shared by every channel.
+struct Taps {
+  size_t o00, o01, o10, o11;
+  float wy, wx;
+  __device__ __forceinline__ Taps(float cy, float cx, int h, int w, int c) {
+    const Axis y = axis_taps(to_pixel(cy, h), 0, h - 1);
+    const Axis x = axis_taps(to_pixel(cx, w), 0, w - 1);
+    const size_t r0 = (size_t)y.i0 * w, r1 = (size_t)y.i1 * w;
+    o00 = (r0 + x.i0) * c;
+    o01 = (r0 + x.i1) * c;
+    o10 = (r1 + x.i0) * c;
+    o11 = (r1 + x.i1) * c;
+    wy = y.t;
+    wx = x.t;
+  }
+};
+
+// Quad::lerp's arithmetic on tap values already loaded, and the grads
+// variant's two differences: the same expressions, so the same roundings.
+__device__ __forceinline__ float lerp4(float v00, float v01, float v10, float v11,
+                                       float wy, float wx) {
+  const float top = v00 + (v01 - v00) * wx;
+  return top + ((v10 + (v11 - v10) * wx) - top) * wy;
+}
+__device__ __forceinline__ float diff_y(float v00, float v01, float v10, float v11, float wx) {
+  return (v10 + (v11 - v10) * wx) - (v00 + (v01 - v00) * wx);
+}
+__device__ __forceinline__ float diff_x(float v00, float v01, float v10, float v11, float wy) {
+  const float dx0 = v01 - v00;
+  return dx0 + ((v11 - v10) - dx0) * wy;
+}
+
 }  // namespace partseg

@@ -1,51 +1,65 @@
-// Fused Gaussian part render + decoder-input assembly (CUDA C++, sm_90a).
+// Fused Gaussian part render + decoder-input assembly, and its backward
+// (CUDA C++, sm_90a).
 //
 // Replaces the Pallas TPU kernel partseg_tpu/partops/pallas/render_assemble.py
-// (`render_assemble` -> `_forward` -> `_kernel`). For every output pixel u and
-// channel c:
+// (`render_assemble` -> `_forward` -> `_kernel`) and its custom_vjp backward
+// (`_bwd`, jnp on the TPU). For every output pixel u and channel c:
 //   out[b, u, c] = Σ_k φ_k(u) · a[b, k, c],
 //   d = max(Λ00·dy² + 2Λ01·dy·dx + Λ11·dx², 0),  (dy, dx) = u − μ_k,
 //   φ = exp(−½ d) ("gauss") or 1 / (1 + d) ("heavy_tail").
 // The [B, H, W, K] blob tensor of the unfused path is never written.
 //
-// What bounds it on the H100: device memory. The f32 output is the only
-// large array (B·H·W·C·4 bytes); the inputs are a few KB per image and the
-// work is ~2 flops per output element per part (K = 10: ~5 flop/byte, below
-// the f32 ridge). The design stages μ, Λ and a[b] (converted to f32 on load)
-// in shared memory, computes the tile's φ[T, K] once into shared memory, and
-// then lets each thread sum over k for one (pixel, channel) with the channel
-// fastest, so the output stores of a warp are 128 contiguous bytes. The TPU
-// kernel's 128-lane padding of K and C (and its Λ = I padding parts) existed
-// only for the TPU's tiles and is dropped.
+// Forward. What bounds it on the H100: device memory. The f32 output is the
+// only large array (B·H·W·C·4 bytes); the work is ~2 flops per output
+// element per part (K = 10: ~5 flop/byte, far below the f32 ridge), so no
+// tensor cores. A block walks a share of one image's tiles of 256 pixels
+// (64 for images of at most 128 pixels): per tile it computes φ[tile, K]
+// once into shared memory (rows padded to a multiple of 4 parts with
+// zeros); each thread owns a quad of channels, holds a[0..K−1][c..c+3] in
+// registers for all its tiles, and walks pixels reading φ rows as broadcast
+// float4 loads — one shared load feeds 16 FMAs — and storing float4
+// outputs, coalesced across the quads of a row. Thread roles come from a
+// 2-D split of threadIdx.x made once, so no integer division runs per
+// output. The TPU kernel's 128-lane padding of K and C (and its Λ = I
+// padding parts) existed only for the TPU's tiles.
+//
+// Backward, the closed form of `_bwd` exactly: φ and dφ/dd recomputed in f32
+// from μ and Λ, g_φ[u,k] = Σ_c g[u,c]·a[k,c], g_d = g_φ·dφ/dd, and per part
+//   d_app[k,c] = Σ_u φ·g,   d_μ = −2Λ·Σ_u g_d·diff,   d_sym = Σ_u g_d·diff·diffᵀ,
+// the whole off-diagonal on d_lam[..,0,1] and 0 on [..,1,0], no mask where
+// the clamp was active. Bound: one read of g. Each block stages a tile of g
+// (coalesced float4 loads) and a[b] in shared memory, rows padded to an odd
+// stride so threads reading different rows hit different banks; then (1)
+// every thread takes (pixel, part) pairs and forms φ and g_d; (2) a warp per
+// part reduces the five sums Σ g_d·{dy, dx, dy², dy·dx, dx²} over the tile
+// with a fixed butterfly, while the other threads sum φ·g per (part,
+// channel). The per-tile partials [B, tiles, K, C + 5] go to an f32
+// scratch, and a second launch sums them over tiles in a fixed order and
+// forms d_μ, d_Λ, d_app: the result is the same bits on every run.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTile = 64;       // output pixels per block
+constexpr int kWarps = kThreads / 32;
+constexpr int kTargetBlocks = 1024;   // forward: blocks in all, about 8 per SM
 constexpr int kMaxParts = 32;   // the wrapper raises above this
+constexpr int kDefaultSmem = 48 * 1024;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
-template <typename T, bool kGauss>
-__global__ void __launch_bounds__(kThreads)
-render_assemble_kernel(const float* __restrict__ mu, const float* __restrict__ lam,
-                       const T* __restrict__ app, float* __restrict__ out,
-                       int k, int c, int h, int w) {
-  extern __shared__ float smem[];
-  float* a_s = smem;              // [k, c]
-  float* phi_s = a_s + k * c;     // [kTile, k]
-  __shared__ float par[5][kMaxParts];
-
-  const int b = blockIdx.y;
-  const int hw = h * w;
-  const int p0 = blockIdx.x * kTile;
-  const int npix = min(kTile, hw - p0);
-
-  for (int i = threadIdx.x; i < k; i += kThreads) {
+// μ (y, x) and Λ (00, 01, 11) of image b's parts into shared memory.
+__device__ __forceinline__ void load_parts(const float* __restrict__ mu,
+                                           const float* __restrict__ lam, int b, int k,
+                                           float (*par)[kMaxParts]) {
+  for (int i = threadIdx.x; i < k; i += blockDim.x) {
     const float* m = mu + ((size_t)b * k + i) * 2;
     const float* l = lam + ((size_t)b * k + i) * 4;
     par[0][i] = m[0];
@@ -54,54 +68,338 @@ render_assemble_kernel(const float* __restrict__ mu, const float* __restrict__ l
     par[3][i] = l[1];
     par[4][i] = l[3];
   }
+}
+
+// The pixel-centre coordinate of flat pixel n: the same float32 expression
+// as partops/coords.py's numpy grid.
+__device__ __forceinline__ float2 pixel_coord(int n, int h, int w) {
+  const int yi = n / w;
+  const int xi = n - yi * w;
+  return make_float2(-1.0f + (2.0f * ((float)yi + 0.5f)) / (float)h,
+                     -1.0f + (2.0f * ((float)xi + 0.5f)) / (float)w);
+}
+
+// φ of one part at offset (dy, dx) from its mean, and dφ/dd. Clamp: a
+// numerically indefinite Λ must not turn exp(−½d) into exp(+).
+template <bool kGauss>
+__device__ __forceinline__ float part_phi(const float (*par)[kMaxParts], int part, float dy,
+                                          float dx, float* dphi) {
+  const float d = fmaxf(par[2][part] * dy * dy + 2.0f * par[3][part] * dy * dx +
+                            par[4][part] * dx * dx,
+                        0.0f);
+  const float phi = kGauss ? expf(-0.5f * d) : 1.0f / (1.0f + d);
+  *dphi = kGauss ? -0.5f * phi : -(phi * phi);
+  return phi;
+}
+
+// ------------------------------------------------------------------ forward
+
+// a[p][c0..c0+3] for p < 4·kKQ, converted to f32; 0 beyond k and c.
+template <typename T, int kKQ>
+__device__ __forceinline__ void load_quad(const T* __restrict__ ab, int k, int c, int c0,
+                                          float4 (&a4)[4 * kKQ]) {
+#pragma unroll
+  for (int p = 0; p < 4 * kKQ; ++p) {
+    float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (p < k) {
+      const T* ap = ab + (size_t)p * c + c0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (c0 + j < c) v[j] = to_f32(ap[j]);
+    }
+    a4[p] = make_float4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+// kKQ: parts padded to 4·kKQ (the register tile of a). One block per
+// (gridDim.x-th share of image b's kTile-pixel tiles): it walks tiles
+// blockIdx.x, + gridDim.x, ..., so a thread loads its a quad once.
+template <typename T, bool kGauss, int kKQ, int kTile>
+__global__ void __launch_bounds__(kThreads)
+render_assemble_kernel(const float* __restrict__ mu, const float* __restrict__ lam,
+                       const T* __restrict__ app, float* __restrict__ out,
+                       int k, int c, int h, int w) {
+  constexpr int kP = 4 * kKQ;
+  __shared__ float par[5][kMaxParts];
+  __shared__ float4 phi_s[kTile * kKQ];   // φ[t][0..kP), zeros beyond k
+
+  const int b = blockIdx.y;
+  const int hw = h * w;
+  load_parts(mu, lam, b, k, par);
+
+  // Thread (quad q, row r): channels 4q..4q+3 at pixels r, r + rows, ...
+  const int nq = (c + 3) / 4;
+  const int qx = min(nq, kThreads);
+  const int rows = kThreads / qx;
+  const int r0 = threadIdx.x / qx;
+  const int q0 = threadIdx.x - r0 * qx;
+  const bool one_quad = nq <= kThreads;    // then q0 is the thread's only quad
+  const bool vec = (c & 3) == 0;           // rows of out are 16-byte aligned
   const T* ab = app + (size_t)b * k * c;
-  for (int i = threadIdx.x; i < k * c; i += kThreads) a_s[i] = to_f32(ab[i]);
+  float4 a4[kP];
+  if (one_quad) load_quad<T, kKQ>(ab, k, c, 4 * q0, a4);
   __syncthreads();
 
-  for (int i = threadIdx.x; i < npix * k; i += kThreads) {
-    const int t = i / k;
-    const int part = i - t * k;
-    const int n = p0 + t;
-    const int yi = n / w;
-    const int xi = n - yi * w;
-    // The same float32 expression as partops/coords.py's numpy grid.
-    const float yc = -1.0f + (2.0f * ((float)yi + 0.5f)) / (float)h;
-    const float xc = -1.0f + (2.0f * ((float)xi + 0.5f)) / (float)w;
-    const float dy = yc - par[0][part];
-    const float dx = xc - par[1][part];
-    // Clamp: a numerically indefinite Λ must not turn exp(−½d) into exp(+).
-    const float d = fmaxf(par[2][part] * dy * dy + 2.0f * par[3][part] * dy * dx +
-                              par[4][part] * dx * dx,
-                          0.0f);
-    phi_s[t * k + part] = kGauss ? expf(-0.5f * d) : 1.0f / (1.0f + d);
+  float* phi_f = reinterpret_cast<float*>(phi_s);
+  for (int p0 = blockIdx.x * kTile; p0 < hw; p0 += gridDim.x * kTile) {
+    const int npix = min(kTile, hw - p0);
+    // Thread (pixel tid % kTile) computes parts tid / kTile, + kThreads / kTile, ...
+    for (int i = threadIdx.x; i < kTile * kP; i += kThreads) {
+      const int t = i % kTile;
+      const int part = i / kTile;
+      if (t < npix) {
+        const float2 u = pixel_coord(p0 + t, h, w);
+        float dphi;
+        phi_f[t * kP + part] =
+            part < k ? part_phi<kGauss>(par, part, u.x - par[0][part], u.y - par[1][part], &dphi)
+                     : 0.0f;
+      }
+    }
+    __syncthreads();
+    if (r0 < rows) {
+      float* ob = out + ((size_t)b * hw + p0) * c;
+      for (int q = q0; q < nq; q += qx) {
+        const int c0 = 4 * q;
+        if (!one_quad) load_quad<T, kKQ>(ab, k, c, c0, a4);
+        for (int t = r0; t < npix; t += rows) {
+          const float4* ph = phi_s + t * kKQ;
+          float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+          for (int kq = 0; kq < kKQ; ++kq) {
+            const float4 f = ph[kq];
+            const float fs[4] = {f.x, f.y, f.z, f.w};
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {   // parts in order, as the plain sum
+              const float4 a = a4[4 * kq + j];
+              acc.x = fmaf(fs[j], a.x, acc.x);
+              acc.y = fmaf(fs[j], a.y, acc.y);
+              acc.z = fmaf(fs[j], a.z, acc.z);
+              acc.w = fmaf(fs[j], a.w, acc.w);
+            }
+          }
+          float* o = ob + (size_t)t * c + c0;
+          if (vec) {
+            *reinterpret_cast<float4*>(o) = acc;
+          } else {
+            const float r[4] = {acc.x, acc.y, acc.z, acc.w};
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              if (c0 + j < c) o[j] = r[j];
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// blocks_x: blocks per image (each walks ceil(tiles / blocks_x) tiles).
+template <typename T, bool kGauss, int kKQ, int kTile>
+void launch_forward_cfg(const float* mu, const float* lam, const void* app, float* out, int b,
+                        int k, int c, int h, int w, int blocks_x, cudaStream_t stream) {
+  const int tiles = (h * w + kTile - 1) / kTile;
+  const dim3 grid(min(blocks_x, tiles), b);
+  render_assemble_kernel<T, kGauss, kKQ, kTile><<<grid, kThreads, 0, stream>>>(
+      mu, lam, static_cast<const T*>(app), out, k, c, h, w);
+}
+
+// Tiles of 256 pixels, and images of at most 128 pixels in one 64-pixel
+// tile; about kTargetBlocks blocks in all. Chosen on the H100 at the
+// serving and training decoders' shapes: fewer, longer-lived blocks that
+// each load their a quad once beat one block per tile.
+template <typename T, bool kGauss, int kKQ>
+void launch_forward_k(const float* mu, const float* lam, const void* app, float* out, int b,
+                      int k, int c, int h, int w, cudaStream_t stream) {
+  const int blocks_x = max(1, kTargetBlocks / b);
+  if (h * w <= 128)
+    launch_forward_cfg<T, kGauss, kKQ, 64>(mu, lam, app, out, b, k, c, h, w, blocks_x, stream);
+  else
+    launch_forward_cfg<T, kGauss, kKQ, 256>(mu, lam, app, out, b, k, c, h, w, blocks_x, stream);
+}
+
+template <typename T, bool kGauss>
+void launch_forward(const float* mu, const float* lam, const void* app, float* out, int b,
+                    int k, int c, int h, int w, cudaStream_t stream) {
+  if (k <= 12) launch_forward_k<T, kGauss, 3>(mu, lam, app, out, b, k, c, h, w, stream);
+  else launch_forward_k<T, kGauss, 8>(mu, lam, app, out, b, k, c, h, w, stream);
+}
+
+// ----------------------------------------------------------------- backward
+
+// One block per (tile of `tile` pixels, image b). Dynamic shared memory:
+// the pixel coordinates u[tile] (y, x; first, so 8-byte aligned whatever
+// k is), a[k][c | 1], g[tile][c | 1], φ[tile][k] and g_d[tile][k], f32.
+// Writes
+// part[b][tile][k][0..c) = Σ φ·g and part[b][tile][k][c..c+5) =
+// Σ g_d·{dy, dx, dy², dy·dx, dx²}. Long sums run in four interleaved
+// partial sums, so no thread waits on one chain of dependent FMAs.
+template <typename T, bool kGauss>
+__global__ void __launch_bounds__(kThreads)
+render_assemble_bwd_partials(const float* __restrict__ mu, const float* __restrict__ lam,
+                             const T* __restrict__ app, const float* __restrict__ g,
+                             float* __restrict__ part, int k, int c, int h, int w, int tile) {
+  extern __shared__ float smem[];
+  __shared__ float par[5][kMaxParts];
+  const int cs = c | 1;
+  float2* u_s = reinterpret_cast<float2*>(smem);   // [tile]
+  float* a_s = smem + 2 * tile;    // [k][cs]
+  float* g_s = a_s + k * cs;       // [tile][cs]
+  float* phi_s = g_s + tile * cs;  // [tile][k]
+  float* gd_s = phi_s + tile * k;  // [tile][k]
+
+  const int b = blockIdx.y;
+  const int hw = h * w;
+  const int p0 = blockIdx.x * tile;
+  const int npix = min(tile, hw - p0);
+  load_parts(mu, lam, b, k, par);
+  for (int t = threadIdx.x; t < npix; t += kThreads) u_s[t] = pixel_coord(p0 + t, h, w);
+  const T* ab = app + (size_t)b * k * c;
+  for (int i = threadIdx.x; i < k * c; i += kThreads) {
+    const int p = i / c;
+    a_s[p * cs + (i - p * c)] = to_f32(ab[i]);
+  }
+  const float* gb = g + ((size_t)b * hw + p0) * c;
+  if ((c & 3) == 0 && (reinterpret_cast<uintptr_t>(gb) & 15) == 0) {
+    const float4* g4 = reinterpret_cast<const float4*>(gb);
+    const int nq = c / 4;
+    for (int i = threadIdx.x; i < npix * nq; i += kThreads) {
+      const int t = i / nq;
+      const float4 v = g4[i];
+      float* dst = g_s + t * cs + 4 * (i - t * nq);
+      dst[0] = v.x;
+      dst[1] = v.y;
+      dst[2] = v.z;
+      dst[3] = v.w;
+    }
+  } else {
+    for (int i = threadIdx.x; i < npix * c; i += kThreads) {
+      const int t = i / c;
+      g_s[t * cs + (i - t * c)] = gb[i];
+    }
   }
   __syncthreads();
 
-  float* ob = out + ((size_t)b * hw + p0) * c;
-  for (int i = threadIdx.x; i < npix * c; i += kThreads) {
-    const int t = i / c;
-    const int ch = i - t * c;
-    const float* ph = phi_s + t * k;
+  // (pixel, part) pairs over all threads: φ, and g_d = (Σ_c g·a)·dφ/dd.
+  for (int i = threadIdx.x; i < npix * k; i += kThreads) {
+    const int t = i / k;
+    const int p = i - t * k;
+    const float2 u = u_s[t];
+    float dphi;
+    const float phi = part_phi<kGauss>(par, p, u.x - par[0][p], u.y - par[1][p], &dphi);
+    const float* gr = g_s + t * cs;
+    const float* ar = a_s + p * cs;
+    float s4[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    int ch = 0;
+    for (; ch + 4 <= c; ch += 4) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s4[j] = fmaf(gr[ch + j], ar[ch + j], s4[j]);
+    }
+    for (; ch < c; ++ch) s4[0] = fmaf(gr[ch], ar[ch], s4[0]);
+    phi_s[i] = phi;
+    gd_s[i] = ((s4[0] + s4[1]) + (s4[2] + s4[3])) * dphi;
+  }
+  __syncthreads();
+
+  const int row = c + 5;
+  float* pb = part + ((size_t)b * gridDim.x + blockIdx.x) * k * row;
+  // The five sums: a warp per part, lanes over pixels, a fixed butterfly.
+  const int lane = threadIdx.x & 31;
+  for (int p = threadIdx.x >> 5; p < k; p += kWarps) {
+    float s[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    for (int t = lane; t < npix; t += 32) {
+      const float2 u = u_s[t];
+      const float dy = u.x - par[0][p];
+      const float dx = u.y - par[1][p];
+      const float gd = gd_s[t * k + p];
+      s[0] += gd * dy;
+      s[1] += gd * dx;
+      s[2] += gd * dy * dy;
+      s[3] += gd * dy * dx;
+      s[4] += gd * dx * dx;
+    }
+#pragma unroll
+    for (int j = 0; j < 5; ++j) {
+      for (int o = 16; o > 0; o >>= 1) s[j] += __shfl_xor_sync(0xffffffffu, s[j], o);
+      if (lane == 0) pb[p * row + c + j] = s[j];
+    }
+  }
+  // Σ_t φ·g per (part, channel), beside the sums above (both only read).
+  for (int i = threadIdx.x; i < k * c; i += kThreads) {
+    const int p = i / c;
+    const int ch = i - p * c;
+    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    int t = 0;
+    for (; t + 4 <= npix; t += 4) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        acc[j] = fmaf(phi_s[(t + j) * k + p], g_s[(t + j) * cs + ch], acc[j]);
+    }
+    for (; t < npix; ++t) acc[0] = fmaf(phi_s[t * k + p], g_s[t * cs + ch], acc[0]);
+    pb[p * row + ch] = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+  }
+}
+
+// One block per image: sums the tiles' partials in tile order, then
+// d_app (in the appearance dtype), d_μ = −2Λ·(Σ g_d·dy, Σ g_d·dx) and
+// d_Λ = [[Σ g_d·dy², 2·Σ g_d·dy·dx], [0, Σ g_d·dx²]].
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+render_assemble_bwd_finish(const float* __restrict__ lam, const float* __restrict__ part,
+                           T* __restrict__ d_app, float* __restrict__ d_mu,
+                           float* __restrict__ d_lam, int k, int c, int tiles) {
+  __shared__ float sums[kMaxParts][5];
+  const int b = blockIdx.x;
+  const int row = c + 5;
+  const size_t per_tile = (size_t)k * row;
+  const float* pb = part + (size_t)b * tiles * per_tile;
+  for (int i = threadIdx.x; i < k * row; i += kThreads) {
     float acc = 0.0f;
-    for (int part = 0; part < k; ++part) acc += ph[part] * a_s[part * c + ch];
-    ob[i] = acc;
+    for (int j = 0; j < tiles; ++j) acc += pb[j * per_tile + i];
+    const int p = i / row;
+    const int ch = i - p * row;
+    if (ch < c) store_as(d_app + ((size_t)b * k + p) * c + ch, acc);
+    else sums[p][ch - c] = acc;
+  }
+  __syncthreads();
+  for (int p = threadIdx.x; p < k; p += kThreads) {
+    const float* l = lam + ((size_t)b * k + p) * 4;
+    const float* s = sums[p];
+    float* dm = d_mu + ((size_t)b * k + p) * 2;
+    dm[0] = -2.0f * (l[0] * s[0] + l[1] * s[1]);
+    dm[1] = -2.0f * (l[2] * s[0] + l[3] * s[1]);
+    float* dl = d_lam + ((size_t)b * k + p) * 4;
+    dl[0] = s[2];
+    dl[1] = s[3] + s[3];
+    dl[2] = 0.0f;
+    dl[3] = s[4];
   }
 }
 
 template <typename T, bool kGauss>
-void launch(const float* mu, const float* lam, const void* app, float* out, int b, int k,
-            int c, int h, int w, cudaStream_t stream) {
-  const dim3 grid((h * w + kTile - 1) / kTile, b);
-  const size_t smem = (size_t)(k * c + kTile * k) * sizeof(float);
-  render_assemble_kernel<T, kGauss><<<grid, kThreads, smem, stream>>>(
-      mu, lam, static_cast<const T*>(app), out, k, c, h, w);
+cudaError_t launch_backward(const float* mu, const float* lam, const void* app, const float* g,
+                            float* part, void* d_app, float* d_mu, float* d_lam, int b, int k,
+                            int c, int h, int w, int tile, cudaStream_t stream) {
+  const int tiles = (h * w + tile - 1) / tile;
+  const size_t smem = ((size_t)k * (c | 1) + (size_t)tile * ((c | 1) + 2 * k + 2)) * sizeof(float);
+  auto partials = render_assemble_bwd_partials<T, kGauss>;
+  // Static and dynamic shared memory above 48 KB together need the opt-in.
+  if (smem + sizeof(float) * 5 * kMaxParts > kDefaultSmem) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        partials, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  partials<<<dim3(tiles, b), kThreads, smem, stream>>>(
+      mu, lam, static_cast<const T*>(app), g, part, k, c, h, w, tile);
+  render_assemble_bwd_finish<T><<<b, kThreads, 0, stream>>>(
+      lam, part, static_cast<T*>(d_app), d_mu, d_lam, k, c, tiles);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // mu: [B, K, 2] f32; lam: [B, K, 2, 2] f32; app: [B, K, C] f32 or bf16
-// (app_is_bf16); out: [B, H, W, C] f32. gauss: 1 = "gauss", 0 = "heavy_tail".
-// The caller keeps K <= 32, B <= 65535 and (K·C + 64·K)·4 bytes <= 48 KB.
+// (app_is_bf16); out: [B, H, W, C] f32, 16-byte aligned. gauss: 1 =
+// "gauss", 0 = "heavy_tail". The caller keeps K <= 32 and B <= 65535.
 // Launches on `stream`, allocates nothing, does not synchronise. Returns
 // cudaGetLastError().
 extern "C" int partseg_render_assemble(const float* mu, const float* lam, const void* app,
@@ -109,11 +407,39 @@ extern "C" int partseg_render_assemble(const float* mu, const float* lam, const 
                                        int h, int w, int gauss, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (app_is_bf16) {
-    if (gauss) launch<__nv_bfloat16, true>(mu, lam, app, out, b, k, c, h, w, s);
-    else launch<__nv_bfloat16, false>(mu, lam, app, out, b, k, c, h, w, s);
+    if (gauss) launch_forward<__nv_bfloat16, true>(mu, lam, app, out, b, k, c, h, w, s);
+    else launch_forward<__nv_bfloat16, false>(mu, lam, app, out, b, k, c, h, w, s);
   } else {
-    if (gauss) launch<float, true>(mu, lam, app, out, b, k, c, h, w, s);
-    else launch<float, false>(mu, lam, app, out, b, k, c, h, w, s);
+    if (gauss) launch_forward<float, true>(mu, lam, app, out, b, k, c, h, w, s);
+    else launch_forward<float, false>(mu, lam, app, out, b, k, c, h, w, s);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The backward. g: [B, H, W, C] f32; part: [B, tiles, K, C + 5] f32 scratch
+// with tiles = ceil(H·W / tile); d_app: [B, K, C] in the appearance dtype;
+// d_mu: [B, K, 2] f32; d_lam: [B, K, 2, 2] f32. The caller keeps K <= 32,
+// B <= 65535 and (K·(C | 1) + tile·((C | 1) + 2K + 2))·4 bytes, with the
+// 640 static ones, within the block's shared memory (above 48 KB in all it
+// is opted in here). Two launches on `stream`;
+// allocates nothing, does not synchronise. Returns the first CUDA error.
+extern "C" int partseg_render_assemble_bwd(const float* mu, const float* lam, const void* app,
+                                           const float* g, int app_is_bf16, float* part,
+                                           void* d_app, float* d_mu, float* d_lam, int b, int k,
+                                           int c, int h, int w, int gauss, int tile,
+                                           void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (app_is_bf16) {
+    err = gauss ? launch_backward<__nv_bfloat16, true>(mu, lam, app, g, part, d_app, d_mu, d_lam,
+                                                       b, k, c, h, w, tile, s)
+                : launch_backward<__nv_bfloat16, false>(mu, lam, app, g, part, d_app, d_mu,
+                                                        d_lam, b, k, c, h, w, tile, s);
+  } else {
+    err = gauss ? launch_backward<float, true>(mu, lam, app, g, part, d_app, d_mu, d_lam, b, k,
+                                               c, h, w, tile, s)
+                : launch_backward<float, false>(mu, lam, app, g, part, d_app, d_mu, d_lam, b,
+                                                k, c, h, w, tile, s);
+  }
+  return static_cast<int>(err);
 }

@@ -2,7 +2,8 @@
 wrapper validates its inputs, runs the plain PyTorch version on a CPU
 tensor, and launches its hand-written kernel (built from ``csrc/`` at
 first use) on a CUDA tensor, counting forward launches in its
-``launches`` attribute. Each is an autograd Function."""
+``launches`` attribute (and render_assemble its backward kernel's in
+``backward_launches``). Each is an autograd Function."""
 
 from partseg_tpu_torch.partops.kernels.bilinear_sample import (
     bilinear_sample_fused,
@@ -10,7 +11,9 @@ from partseg_tpu_torch.partops.kernels.bilinear_sample import (
 )
 from partseg_tpu_torch.partops.kernels.render_assemble import (
     render_assemble,
+    render_assemble_backward,
     render_assemble_plain,
+    render_assemble_vjp,
 )
 from partseg_tpu_torch.partops.kernels.softmax_moments import (
     softmax_moments,
@@ -24,6 +27,7 @@ KERNELS = (softmax_moments, render_assemble, tps_warp, bilinear_sample_fused)
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
+    render_assemble.backward_launches = 0
 
 
 __all__ = [
@@ -31,6 +35,8 @@ __all__ = [
     "softmax_moments_plain",
     "render_assemble",
     "render_assemble_plain",
+    "render_assemble_backward",
+    "render_assemble_vjp",
     "tps_warp",
     "tps_warp_plain",
     "bilinear_sample_fused",

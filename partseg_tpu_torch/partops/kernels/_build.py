@@ -5,7 +5,9 @@ per source, all started together), linked into one shared library with
 a plain C interface, and loaded with ``ctypes``. The build happens at
 first use and is cached by a hash of the sources, headers and flags under
 ``build/kernels/`` beside the package (listed in ``.gitignore``), so a
-fresh checkout builds its own kernels in a few seconds.
+fresh checkout builds its own kernels in a few seconds. Each C entry
+point's ``ctypes`` signature is bound once, when the library is loaded
+(``SIGNATURES``), and ``launch`` calls it on PyTorch's current stream.
 
 Importing this module needs neither ``nvcc`` nor a GPU.
 """
@@ -31,6 +33,20 @@ COMPILE_FLAGS = (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# Every C entry point: its argument types (pointers and the stream as
+# c_void_p, ints as c_int; see the comment above each in csrc/) and its
+# return type. ctypes would pass an unannotated Python int as a 32-bit int
+# and cut a pointer.
+SIGNATURES = {
+    "partseg_error_string": ([_I], ctypes.c_char_p),
+    "partseg_softmax_moments_f32": ([_P] * 3 + [_I] * 5 + [_P], _I),
+    "partseg_render_assemble": ([_P] * 3 + [_I, _P] + [_I] * 6 + [_P], _I),
+    "partseg_render_assemble_bwd": ([_P] * 4 + [_I] + [_P] * 4 + [_I] * 7 + [_P], _I),
+    "partseg_tps_warp": ([_P, _I, _P, _P, _P] + [_I] * 7 + [_P], _I),
+    "partseg_bilinear_sample": ([_P, _I, _P, _P, _P, _P] + [_I] * 6 + [_P], _I),
+}
+
 
 def nvcc_path() -> str:
     """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on PATH."""
@@ -44,13 +60,9 @@ def nvcc_path() -> str:
     return found
 
 
-def _sources() -> list[Path]:
-    return sorted(CSRC_DIR.glob("*.cu"))
-
-
-def _tag(sources: list[Path]) -> str:
+def _tag(csrc: Path, sources: list[Path]) -> str:
     h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
-    for src in sources + sorted(CSRC_DIR.glob("*.cuh")):
+    for src in sources + sorted(csrc.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -84,15 +96,18 @@ def _build(sources: list[Path], lib_path: Path) -> None:
 
 
 @functools.cache
-def library() -> ctypes.CDLL:
-    """Build (once per source hash) and load the kernels' shared library."""
-    sources = _sources()
-    lib_path = BUILD_DIR / f"libpartseg_kernels-{_tag(sources)}.so"
+def library(csrc: Path = CSRC_DIR) -> ctypes.CDLL:
+    """Build (once per source hash) and load the kernels' shared library;
+    ``csrc`` names another checkout's sources (a baseline to time against)."""
+    sources = sorted(csrc.glob("*.cu"))
+    lib_path = BUILD_DIR / f"libpartseg_kernels-{_tag(csrc, sources)}.so"
     if not lib_path.exists():
         _build(sources, lib_path)
     lib = ctypes.CDLL(str(lib_path))
-    lib.partseg_error_string.argtypes = [ctypes.c_int]
-    lib.partseg_error_string.restype = ctypes.c_char_p
+    for name, (argtypes, restype) in SIGNATURES.items():
+        if hasattr(lib, name):          # a baseline may lack newer entry points
+            fn = getattr(lib, name)     # CDLL caches it: the binding sticks
+            fn.argtypes, fn.restype = argtypes, restype
     return lib
 
 
@@ -106,3 +121,16 @@ def check_launch(err: int, name: str) -> None:
 def stream_handle(device: torch.device) -> int:
     """PyTorch's current CUDA stream on ``device``, as a pointer-sized int."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def launch(entry: str, device: torch.device, *args, lib: ctypes.CDLL | None = None) -> None:
+    """Call the C entry point ``entry`` with ``args`` and the current stream
+    of ``device`` appended; raise if it returns a CUDA error. The device is
+    made current only when it is not already."""
+    fn = getattr(lib or library(), entry)
+    if device.index == torch.cuda.current_device():
+        err = fn(*args, stream_handle(device))
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, stream_handle(device))
+    check_launch(err, entry.removeprefix("partseg_"))

@@ -19,17 +19,12 @@ Function, as the JAX ``custom_vjp`` is:
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from partseg_tpu_torch.partops.kernels import _build
 from partseg_tpu_torch.partops.warp import axis_taps, gather_sample, pixel_index
 
 MAX_BATCH = 65535        # gridDim.y
-
-_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-              ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p])
 
 
 def _gather_taps(image: torch.Tensor, coords: torch.Tensor):
@@ -89,15 +84,13 @@ def _launch(image: torch.Tensor, coords: torch.Tensor, with_grads: bool):
                            for _ in range(3))
     else:
         out = torch.empty((b, n, c), device=dev, dtype=image.dtype)
-    fn = _build.library().partseg_bilinear_sample
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(dev):
-        err = fn(image.data_ptr(), int(image.dtype == torch.bfloat16), coords.data_ptr(),
-                 out.data_ptr(), d_fy.data_ptr() if with_grads else None,
-                 d_fx.data_ptr() if with_grads else None, b, h, w, c, n, int(with_grads),
-                 _build.stream_handle(dev))
-    _build.check_launch(err, "bilinear_sample")
+    if coords.data_ptr() % 8:
+        raise ValueError("bilinear_sample reads (y, x) pairs as 8-byte words: coords must "
+                         "start 8-byte aligned")
+    _build.launch("partseg_bilinear_sample", dev,
+                  image.data_ptr(), int(image.dtype == torch.bfloat16), coords.data_ptr(),
+                  out.data_ptr(), d_fy.data_ptr() if with_grads else None,
+                  d_fx.data_ptr() if with_grads else None, b, h, w, c, n, int(with_grads))
     bilinear_sample_fused.launches += 1
     return (out, d_fy, d_fx) if with_grads else out
 

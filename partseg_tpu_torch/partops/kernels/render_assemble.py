@@ -5,18 +5,22 @@ Replaces the Pallas TPU kernel ``partseg_tpu/partops/pallas/render_assemble.py``
 computes out[b, u, c] = Σ_k φ_k(u)·a[b, k, c] without writing the
 [B, H, W, K] blob tensor, summing in f32 whatever the appearance dtype.
 
-``render_assemble`` is an autograd Function. Its forward launches the
-kernel on a CUDA tensor (or raises) and runs the plain version
-(``render_gaussians(..., precision=lam)`` + ``assemble_decoder_input`` in
-f32) on a CPU tensor. Its backward is the JAX ``custom_vjp``'s (``_bwd``)
-in plain PyTorch, the same code on both devices: it recomputes φ, and
-puts the whole off-diagonal Λ cotangent on ``[..., 0, 1]`` because the
-forward reads only that entry (doubled).
+``render_assemble`` is an autograd Function, as the JAX ``custom_vjp`` is:
+
+- its forward launches the kernel on a CUDA tensor (or raises) and runs
+  the plain version (``render_gaussians(..., precision=lam)`` +
+  ``assemble_decoder_input`` in f32) on a CPU tensor;
+- its backward is the closed form of the JAX ``_bwd``: it recomputes φ,
+  and puts the whole off-diagonal Λ cotangent on ``[..., 0, 1]`` because
+  the forward reads only that entry (doubled). On a CUDA tensor the
+  backward kernel of the same file computes it (two launches: per-tile
+  partial sums, then a fixed-order sum over tiles, so the result is the
+  same on every run); on a CPU tensor ``render_assemble_vjp``, the plain
+  version, does. ``render_assemble.backward_launches`` counts the
+  kernel's backward calls.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
@@ -26,13 +30,31 @@ from partseg_tpu_torch.partops.kernels import _build
 from partseg_tpu_torch.partops.render import RENDER_KERNELS, render_gaussians
 
 MAX_PARTS = 32           # kMaxParts in csrc/render_assemble.cu
-TILE = 64                # kTile: output pixels per block
-SMEM_LIMIT = 48 * 1024   # shared memory a block gets without an opt-in attribute
-STATIC_SMEM = 5 * MAX_PARTS * 4   # the kernel's static per-part parameters
 MAX_BATCH = 65535        # gridDim.y
+# The backward kernel stages a[K, C | 1], and g[tile, C | 1], φ[tile, K],
+# g_d[tile, K] and the pixel coordinates [tile, 2] (f32) per block in
+# shared memory, beside 5·MAX_PARTS floats of static parameters. Its tile
+# keeps within SMEM_BUDGET (three blocks to an SM), and takes up to the
+# H100's 227 KB per block (an opt-in above 48 KB) only at its least, 32.
+BWD_TILE = 256           # most pixels per backward block
+SMEM_BUDGET = 64 * 1024
+SMEM_OPT_IN = 232448
+STATIC_SMEM = 5 * MAX_PARTS * 4
 
-_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
-             + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+
+def backward_smem(k: int, c: int, tile: int) -> int:
+    """Shared memory of one backward block, in bytes."""
+    return (k * (c | 1) + tile * ((c | 1) + 2 * k + 2)) * 4 + STATIC_SMEM
+
+
+def backward_tile(k: int, c: int, hw: int) -> int:
+    """Pixels per block of the backward kernel: the largest power of two
+    from 32 to BWD_TILE below 2·H·W whose staging fits SMEM_BUDGET, else
+    32. Ragged tiles measured slower on the H100."""
+    tile = BWD_TILE
+    while tile > 32 and (tile >= 2 * hw or backward_smem(k, c, tile) > SMEM_BUDGET):
+        tile //= 2
+    return tile
 
 
 def render_assemble_plain(mu, lam, app, h: int, w: int, kernel: str = "gauss"):
@@ -62,8 +84,9 @@ def _check(mu, lam, app, h, w, kernel) -> None:
         raise ValueError("render_assemble inputs lie on different devices")
     if k > MAX_PARTS:
         raise ValueError(f"render_assemble takes at most {MAX_PARTS} parts, got {k}")
-    if (k * c + TILE * k) * 4 + STATIC_SMEM > SMEM_LIMIT:
-        raise ValueError(f"render_assemble: K·C = {k}·{c} exceeds the kernel's shared memory")
+    if backward_smem(k, c, 32) > SMEM_OPT_IN:
+        raise ValueError(f"render_assemble: K = {k}, C = {c} exceeds the backward kernel's "
+                         "shared memory")
     if b > MAX_BATCH:
         raise ValueError(f"render_assemble takes at most {MAX_BATCH} images, got {b}")
 
@@ -71,20 +94,41 @@ def _check(mu, lam, app, h, w, kernel) -> None:
 def _launch(mu, lam, app, h, w, kernel):
     b, k, c = app.shape
     out = torch.empty((b, h, w, c), device=app.device, dtype=torch.float32)
-    fn = _build.library().partseg_render_assemble
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(app.device):
-        err = fn(mu.data_ptr(), lam.data_ptr(), app.data_ptr(),
-                 int(app.dtype == torch.bfloat16), out.data_ptr(), b, k, c, h, w,
-                 int(kernel == "gauss"), _build.stream_handle(app.device))
-    _build.check_launch(err, "render_assemble")
+    _build.launch("partseg_render_assemble", app.device,
+                  mu.data_ptr(), lam.data_ptr(), app.data_ptr(), int(app.dtype == torch.bfloat16),
+                  out.data_ptr(), b, k, c, h, w, int(kernel == "gauss"))
     render_assemble.launches += 1
     return out
 
 
+def _launch_backward(mu, lam, app, h, w, kernel, g):
+    b, k, c = app.shape
+    dev = app.device
+    g = g.float().contiguous()
+    tile = backward_tile(k, c, h * w)
+    part = torch.empty((b, -(-(h * w) // tile), k, c + 5), device=dev, dtype=torch.float32)
+    d_mu = torch.empty((b, k, 2), device=dev, dtype=torch.float32)
+    d_lam = torch.empty((b, k, 2, 2), device=dev, dtype=torch.float32)
+    d_app = torch.empty((b, k, c), device=dev, dtype=app.dtype)
+    _build.launch("partseg_render_assemble_bwd", dev,
+                  mu.data_ptr(), lam.data_ptr(), app.data_ptr(), g.data_ptr(),
+                  int(app.dtype == torch.bfloat16), part.data_ptr(), d_app.data_ptr(),
+                  d_mu.data_ptr(), d_lam.data_ptr(), b, k, c, h, w, int(kernel == "gauss"), tile)
+    render_assemble.backward_launches += 1
+    return d_mu, d_lam, d_app
+
+
+def render_assemble_backward(mu, lam, app, h: int, w: int, kernel: str, g):
+    """(d_mu, d_lam, d_app) from the output cotangent g [B, h, w, C]: the
+    backward kernel on a CUDA tensor, ``render_assemble_vjp`` on a CPU one."""
+    if app.device.type == "cpu":
+        return render_assemble_vjp(mu, lam, app, h, w, kernel, g)
+    return _launch_backward(mu, lam, app, h, w, kernel, g)
+
+
 def render_assemble_vjp(mu, lam, app, h: int, w: int, kernel: str, g):
-    """(d_mu, d_lam, d_app) from the output cotangent g [B, h, w, C]."""
+    """(d_mu, d_lam, d_app) from the output cotangent g [B, h, w, C]: the
+    plain version of the backward kernel, in einsums."""
     b, k, c = app.shape
     gf = g.reshape(b, h * w, c).float()
     yy, xx = coord_grid(h, w, device=mu.device)
@@ -126,7 +170,7 @@ class _RenderAssemble(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         mu, lam, app = ctx.saved_tensors
-        return (*render_assemble_vjp(mu, lam, app, *ctx.shape, g), None, None, None)
+        return (*render_assemble_backward(mu, lam, app, *ctx.shape, g), None, None, None)
 
 
 def render_assemble(mu: torch.Tensor, lam: torch.Tensor, app: torch.Tensor,
@@ -140,3 +184,4 @@ def render_assemble(mu: torch.Tensor, lam: torch.Tensor, app: torch.Tensor,
 
 
 render_assemble.launches = 0
+render_assemble.backward_launches = 0

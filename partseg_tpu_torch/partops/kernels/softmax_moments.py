@@ -16,17 +16,12 @@ kernel either (its backward is jnp, which XLA fuses).
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from partseg_tpu_torch.partops.coords import moment_basis
 from partseg_tpu_torch.partops.kernels import _build
 from partseg_tpu_torch.partops.moments import moments_from_raw, soft_argmax_moments
 from partseg_tpu_torch.partops.softmax import spatial_softmax
-
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-
 
 def softmax_moments_plain(logits: torch.Tensor):
     """The plain PyTorch version: (parts, mu, sigma), all f32."""
@@ -61,13 +56,8 @@ def _launch(logits: torch.Tensor, ld: int):
     b, h, w, k = logits.shape
     parts = torch.empty((b, h, w, k), device=logits.device, dtype=torch.float32)
     raw = torch.empty((b, k, 5), device=logits.device, dtype=torch.float32)
-    fn = _build.library().partseg_softmax_moments_f32
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(logits.device):
-        err = fn(logits.data_ptr(), parts.data_ptr(), raw.data_ptr(), b, h, w, k, ld,
-                 _build.stream_handle(logits.device))
-    _build.check_launch(err, "softmax_moments")
+    _build.launch("partseg_softmax_moments_f32", logits.device,
+                  logits.data_ptr(), parts.data_ptr(), raw.data_ptr(), b, h, w, k, ld)
     softmax_moments.launches += 1
     mu, sigma = moments_from_raw(raw)
     return parts, mu, sigma

@@ -24,7 +24,6 @@ warp is unbanded.
 
 from __future__ import annotations
 
-import ctypes
 import os
 
 import torch
@@ -38,9 +37,6 @@ from partseg_tpu_torch.partops.warp import axis_taps, gather_lerp, gather_sample
 
 MAX_BATCH = 65535                 # gridDim.y
 SMEM_LIMIT = 48 * 1024            # the kernel's [M, 2] f32 weights in shared memory
-
-_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-              ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_void_p])
 
 
 def _round_up(x: int, m: int) -> int:
@@ -120,14 +116,9 @@ def _check(image, weights, basis) -> None:
 def _launch(image, weights, basis, kh: int, tile: int) -> torch.Tensor:
     b, h, w, c = image.shape
     out = torch.empty_like(image)
-    fn = _build.library().partseg_tps_warp
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(image.device):
-        err = fn(image.data_ptr(), int(image.dtype == torch.bfloat16), weights.data_ptr(),
-                 basis.data_ptr(), out.data_ptr(), b, h, w, c, weights.shape[1], tile, kh,
-                 _build.stream_handle(image.device))
-    _build.check_launch(err, "tps_warp")
+    _build.launch("partseg_tps_warp", image.device,
+                  image.data_ptr(), int(image.dtype == torch.bfloat16), weights.data_ptr(),
+                  basis.data_ptr(), out.data_ptr(), b, h, w, c, weights.shape[1], tile, kh)
     tps_warp.launches += 1
     return out
 

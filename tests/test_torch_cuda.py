@@ -10,9 +10,14 @@ f32 comparisons set TF32 off (cuDNN's f32 convolutions default to it).
 Tolerances: parts rtol 1e-5 (one exp and one division per element); μ,
 Σ atol 1e-5 (sums of H·W f32 terms in another order); render output
 atol 1e-5·max|out| (K products per element); warps 1e-4 (the TPS flow is
-a 28-term dot in another order) and 1e-6 at given coordinates;
+a 28-term dot in another order) and 1e-6 at given coordinates (the same
+taps and weights; only the lerp's products may fuse); bf16 warps against
+the f32 plain version cast once: one bf16 ulp at values below 1 (2⁻⁸);
 cotangents 1e-4 of their largest (sums over H·W in another order, with
-atomics for the warps' image cotangents); whole-model outputs and
+atomics for the warps' image cotangents); the render_assemble backward
+kernel against its closed form 1e-5 of each cotangent's largest (the same
+f32 products summed over tiles in another order; a bf16 d_app may round
+to the neighbouring bf16 value: one ulp, at most 2⁻⁷ of it); whole-model outputs and
 training metrics 1e-4 of their scale (tens of f32 layers).
 """
 
@@ -34,6 +39,14 @@ from partseg_tpu_torch.partops.kernels import (
     softmax_moments_plain,
     tps_warp,
     tps_warp_plain,
+)
+from partseg_tpu_torch.partops.kernels.bilinear_sample import (
+    bilinear_sample_plain,
+    sample_with_grads,
+)
+from partseg_tpu_torch.partops.kernels.render_assemble import (
+    render_assemble_backward,
+    render_assemble_vjp,
 )
 from partseg_tpu_torch.partops.kernels.tps_warp import band_config
 from partseg_tpu_torch.partops.moments import precision_from_cov
@@ -96,12 +109,98 @@ def test_render_assemble_kernel_matches_plain(cuda, kernel, dtype, res, c):
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * want.abs().max().item())
 
 
+@pytest.mark.parametrize("k", [1, 10, 32])
+@pytest.mark.parametrize("c", [1, 3, 24, 256])
+def test_render_assemble_kernel_odd_shapes(cuda, k, c):
+    """Every register tile of parts (K ≤ 4, ≤ 12, ≤ 32), channel counts
+    with and without a ragged quad, and 13×11 pixels: a partial tile."""
+    rng = np.random.default_rng(k * 1000 + c)
+    mu = torch.from_numpy(rng.uniform(-0.8, 0.8, (2, k, 2)).astype(np.float32)).to(cuda)
+    lam = torch.from_numpy(np.tile(np.diag([9.0, 16.0]).astype(np.float32), (2, k, 1, 1))).to(cuda)
+    app = torch.from_numpy(rng.standard_normal((2, k, c)).astype(np.float32)).to(cuda)
+    got = render_assemble(mu, lam, app, 13, 11)
+    want = render_assemble_plain(mu, lam, app, 13, 11)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * want.abs().max().item())
+
+
+def _backward_inputs(cuda, k=10, c=24, b=3, indefinite=False, seed=11):
+    _, mu, sigma = softmax_moments_plain(_logits(seed, b, 32, k)[..., :k])
+    lam = precision_from_cov(sigma)
+    if indefinite:                   # Λ with a negative eigenvalue: the d ≥ 0 clamp acts
+        lam[:, 0] = torch.tensor([[4.0, 0.0], [0.0, -9.0]])
+    app = torch.randn((b, k, c), generator=torch.Generator().manual_seed(seed))
+    return mu.to(cuda).contiguous(), lam.to(cuda).contiguous(), app.to(cuda)
+
+
+@pytest.mark.parametrize("kernel", ["gauss", "heavy_tail"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("res,k,c,indefinite", [(32, 10, 24, False), (16, 10, 48, True),
+                                                (8, 10, 96, False), (13, 3, 3, True),
+                                                (8, 10, 1000, False)])
+def test_render_assemble_backward_kernel_matches_closed_form(cuda, kernel, dtype, res, k, c,
+                                                             indefinite):
+    """The backward kernel against render_assemble_vjp on the same inputs:
+    the training decoder's three scales (32²×24 needs the shared-memory
+    opt-in only with the static parameters counted), a ragged 13² tile
+    with an odd K and an indefinite Λ where the clamp is active, and
+    C = 1000, whose staging needs the opt-in at its least tile."""
+    mu, lam, app = _backward_inputs(cuda, k=k, c=c, indefinite=indefinite)
+    app = app.to(dtype)
+    g = torch.randn((3, res, res, c), generator=torch.Generator().manual_seed(12)).to(cuda)
+    before = render_assemble.backward_launches
+    got = render_assemble_backward(mu, lam, app, res, res, kernel, g)
+    want = render_assemble_vjp(mu, lam, app, res, res, kernel, g)
+    torch.cuda.synchronize()
+    assert render_assemble.backward_launches == before + 1
+    assert [v.dtype for v in got] == [torch.float32, torch.float32, dtype]
+    for name, a, b in zip(("d_mu", "d_lam", "d_app"), got, want):
+        scale = b.float().abs().max().item()
+        rtol = 2 ** -7 if (name == "d_app" and dtype == torch.bfloat16) else 0.0
+        torch.testing.assert_close(a.float(), b.float(), rtol=rtol, atol=1e-5 * scale,
+                                   msg=lambda m, name=name: f"{name}: {m}")
+    assert not got[1][..., 1, 0].any()
+    again = render_assemble_backward(mu, lam, app, res, res, kernel, g)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))       # a fixed summation order
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [1, 3, 4, 8])
+def test_bilinear_sample_kernel_odd_shapes(cuda, dtype, c):
+    """Both variants at channel counts of every kernel (C ≤ 4 staged, 8
+    the per-point loop), 1037 points per image (not a multiple of either
+    block, and the second image's output starts unaligned), coordinates
+    beyond the border and NaN. A NaN coordinate clamps like one far below
+    -1 (the plain version's floor of NaN has no defined tap)."""
+    gen = torch.Generator().manual_seed(c)
+    img = torch.rand((2, 17, 23, c), generator=gen).to(cuda, dtype)
+    crd = torch.rand((2, 1037, 2), generator=gen) * 3.0 - 1.5
+    crd[0, 5, 0] = crd[1, 700, 1] = crd[1, 1036, 0] = float("nan")
+    crd = crd.to(cuda)
+    finite = torch.nan_to_num(crd, nan=-3.0)
+    before = bilinear_sample_fused.launches
+    got = bilinear_sample_fused(img, crd)
+    want = bilinear_sample_plain(img.float(), finite).to(dtype)
+    grads = sample_with_grads(img, crd)
+    plain = bilinear_sample_plain(img, finite, with_grads=True)
+    torch.cuda.synchronize()
+    assert bilinear_sample_fused.launches == before + 2 and got.dtype == dtype
+    tol = 1e-6 if dtype == torch.float32 else 2 ** -8 + 1e-6
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+    for a, b in zip(grads, plain):
+        assert a.dtype == torch.float32 and torch.isfinite(a).all()
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+
+
 def test_kernel_wrappers_raise_on_the_card(cuda):
     with pytest.raises(TypeError):
         softmax_moments(torch.zeros((1, 8, 8, 3), device=cuda, dtype=torch.float16))
     with pytest.raises(ValueError):
         render_assemble(torch.zeros((1, 33, 2), device=cuda), torch.zeros((1, 33, 2, 2), device=cuda),
                         torch.zeros((1, 33, 4), device=cuda), 8, 8)
+    img = torch.zeros((1, 8, 8, 3), device=cuda)
+    with pytest.raises(ValueError):              # (y, x) pairs not 8-byte aligned
+        bilinear_sample_fused(img, torch.zeros(17, device=cuda)[1:].reshape(1, 8, 2))
 
 
 def test_partnet_on_card_matches_cpu(cuda):

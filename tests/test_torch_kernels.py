@@ -32,6 +32,12 @@ from partseg_tpu_torch.partops.kernels import (
     render_assemble,
     softmax_moments,
 )
+from partseg_tpu_torch.partops.kernels.render_assemble import (
+    SMEM_BUDGET,
+    SMEM_OPT_IN,
+    backward_smem,
+    backward_tile,
+)
 from _torch_parity import n, t
 
 torch.set_num_threads(1)
@@ -115,7 +121,9 @@ def test_render_assemble_vjp_matches_jax(kernel, app_dtype):
     args = [t(mu).requires_grad_(), t(lam).requires_grad_(), t(app).to(app_dtype).requires_grad_()]
     out = render_assemble(*args, h, w, kernel)
     assert type(out.grad_fn).__name__ == "_RenderAssembleBackward"
+    before = render_assemble.backward_launches
     got = torch.autograd.grad(out, args, t(g))
+    assert render_assemble.backward_launches == before      # the CPU branch: no kernel
     japp = jnp.asarray(app, jnp.bfloat16 if app_dtype == torch.bfloat16 else jnp.float32)
     _, vjp = jax.vjp(lambda m, l, a: jax_render_assemble(m, l, a, h, w, kernel), mu, lam, japp)
     d_mu, d_lam, d_app = vjp(jnp.asarray(g))
@@ -186,7 +194,21 @@ def test_render_assemble_rejects_what_the_kernel_does_not_take():
         render_assemble(torch.zeros((1, 33, 2)), torch.zeros((1, 33, 2, 2)), big, 8, 8)
     with pytest.raises(ValueError):                             # K·C beyond shared memory
         render_assemble(torch.zeros((1, 16, 2)), torch.zeros((1, 16, 2, 2)),
-                        torch.zeros((1, 16, 1024)), 8, 8)
+                        torch.zeros((1, 16, 2048)), 8, 8)
+
+
+@pytest.mark.parametrize("k,c,hw,tile", [
+    (10, 96, 64, 64), (10, 48, 256, 128), (10, 24, 1024, 256),   # the speed128 decoder
+    (10, 256, 256, 32), (4, 7, 20, 32),
+    (10, 1000, 64, 32),                                          # above 64 KB: 32 pixels
+])
+def test_render_assemble_backward_tile_fits_shared_memory(k, c, hw, tile):
+    """The backward kernel's pixels per block: a power of two from 32 to
+    256, within the 64 KB budget where 32 pixels fit it, else 32 pixels
+    within the 227 KB a block may opt in to."""
+    assert backward_tile(k, c, hw) == tile
+    assert backward_smem(k, c, tile) <= (SMEM_BUDGET if c < 1000 else SMEM_OPT_IN)
+    render_assemble(*(torch.zeros(s) for s in ((1, k, 2), (1, k, 2, 2), (1, k, c))), 4, 5)
 
 
 def test_kernel_modules_import_and_run_on_cpu_without_building():

@@ -56,6 +56,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import importlib.util
 import json
 import math
 import os
@@ -155,14 +156,16 @@ def device_ms(fn, calls: int = PROFILE_CALLS, warmup: int = 3) -> float:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    check(us > 0, "torch.profiler recorded no device time")
-    return us / calls / 1e3
+    for _ in range(3):   # CUPTI now and then delivers an empty window: take another
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        if us > 0:
+            return us / calls / 1e3
+    raise SmokeError("torch.profiler recorded no device time in three windows")
 
 
 # ----------------------------------------------------------------- inputs
@@ -196,6 +199,15 @@ def train_render_inputs(gen, app_dtype=torch.float32, batch=TRAIN_BATCH):
         app = 0.5 * torch.randn((batch, k, f), generator=gen, device="cuda")
         scales.append((res, app.to(app_dtype)))
     return logits, mu.contiguous(), lam, scales
+
+
+def serving_render_inputs(gen, cfg, app_dtype):
+    """The celeba serving decoder's inputs at B = 256: μ and Λ from the
+    moments of serving logits, and one appearance per decoder scale, as
+    (mu, lam, [(res, app)])."""
+    _, mu, sigma = softmax_moments_plain(serving_logits(gen, cfg.n_parts, cfg.map_size))
+    cases = render_cases(cfg, mu.contiguous(), sigma, gen)
+    return mu.contiguous(), cases[0][2], [(res, app.to(app_dtype)) for *_, app, res in cases]
 
 
 def render_cases(cfg, mu, sigma, gen):
@@ -239,9 +251,13 @@ def tps_warp_bound(b, h, w, c, m, elt):
     return bytes_, flops
 
 
-def bilinear_bound(b, n, c, elt, hw):
-    bytes_ = elt * b * hw * c + 8 * b * n + elt * b * n * c             # image, coords, out
-    flops = b * n * (12 + 10 * c)
+def bilinear_bound(b, n, c, elt, hw, grads=False):
+    """The primal writes [B, N, C] in the image dtype; the grads variant
+    writes three f32 arrays [B, C, N] (the sample and its y and x slopes)
+    and does 4 more flops per channel for the slopes."""
+    out = 3 * 4 * b * n * c if grads else elt * b * n * c
+    bytes_ = elt * b * hw * c + 8 * b * n + out                         # image, coords, out
+    flops = b * n * (12 + (14 if grads else 10) * c)
     return bytes_, flops
 
 
@@ -286,7 +302,10 @@ def phase_kernels(cfg) -> dict:
         fg = serving_logits(gen, k, size, delta)
         got = softmax_moments(fg)
         want = softmax_moments_plain(fg)
+        again = softmax_moments(fg)
         torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"softmax_moments repeat differs (delta={delta})")
         p_rel = ((got[0] - want[0]).abs() / want[0].abs().clamp_min(1e-30)).max().item()
         e_mu, e_sig = max_err(got[1], want[1]), max_err(got[2], want[2])
         report.append({"kernel": "softmax_moments", "delta": delta, "parts_max_rel": p_rel,
@@ -311,6 +330,18 @@ def phase_kernels(cfg) -> dict:
                 check(e <= 1e-5 * scale,
                       f"render_assemble {name} {kind} delta={delta}: {e} > 1e-5·{scale}")
                 errs["render_assemble"] = max(errs["render_assemble"], e)
+    tlogits = train_render_inputs(gen)[0]
+    tfg = tlogits[..., :k]
+    got, want, again = softmax_moments(tfg), softmax_moments_plain(tfg), softmax_moments(tfg)
+    torch.cuda.synchronize()
+    e_mu, e_sig = max_err(got[1], want[1]), max_err(got[2], want[2])
+    report.append({"kernel": "softmax_moments", "shape": list(tfg.shape), "mu_max_abs": e_mu,
+                   "sigma_max_abs": e_sig, "parts_max_abs": max_err(got[0], want[0])})
+    check(torch.allclose(got[0], want[0], rtol=1e-5, atol=1e-30) and e_mu <= 1e-5
+          and e_sig <= 1e-5, f"softmax_moments disagrees at the training shape: {e_mu}, {e_sig}")
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          "softmax_moments repeat differs at the training shape")
+    errs["softmax_moments"] = max(errs["softmax_moments"], max_err(got[0], want[0]), e_mu, e_sig)
     emit("kernels", cases=report, tolerances={
         "softmax_moments": "parts rtol 1e-5; mu, sigma atol 1e-5",
         "render_assemble": "atol 1e-5 * max|plain output|"})
@@ -446,16 +477,19 @@ def _grads(fn, inputs, seed):
     return torch.autograd.grad(outs, xs, cots)
 
 
-def phase_backward() -> dict:
+def phase_backward(cfg) -> dict:
     """Each Function's backward on the card against torch.autograd.grad
     through its plain version, f32, TF32 off, at the training shapes.
     Tolerance 1e-4 of each cotangent's largest entry: the backwards sum
     over H·W (and channels) in another order — with atomics in no fixed
     order for the image cotangents of the warps. Then render_assemble's
     backward kernel against its closed form on the same cotangents, f32
-    and bf16 appearance: 1e-5 of each cotangent's largest (the same f32
+    and bf16 appearance, at the speed128 decoder's scales (one cluster per
+    image) and the celeba decoder's (partial sums: 64², 128²; the staging
+    kernel: C = 256): 1e-5 of each cotangent's largest (the same f32
     products summed in another order); a bf16 d_app may round to the
-    neighbouring bf16 value (one ulp: rtol 2⁻⁷)."""
+    neighbouring bf16 value (one ulp: rtol 2⁻⁷). Repeats must give the
+    same bits."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
     report = {}
     for name, (fn, plain, inputs) in backward_cases(gen).items():
@@ -476,14 +510,16 @@ def phase_backward() -> dict:
     closed = {}
     for dtype in (torch.float32, torch.bfloat16):
         _, mu, lam, scales = train_render_inputs(gen, app_dtype=dtype)
-        for res, app in scales:
-            g = torch.randn((TRAIN_BATCH, res, res, app.shape[-1]), generator=gen, device="cuda")
+        smu, slam, sscales = serving_render_inputs(gen, cfg, dtype)
+        for mu, lam, res, app in ([(mu, lam, r, a) for r, a in scales]
+                                  + [(smu, slam, r, a) for r, a in sscales]):
+            g = torch.randn((app.shape[0], res, res, app.shape[-1]), generator=gen, device="cuda")
             got = render_assemble_backward(mu, lam, app, res, res, kind, g)
             want = render_assemble_vjp(mu, lam, app, res, res, kind, g)
             again = render_assemble_backward(mu, lam, app, res, res, kind, g)
             torch.cuda.synchronize()
             errs = [_scaled_err(a, b) for a, b in zip(got, want)]
-            closed[f"{res}x{app.shape[-1]} {str(dtype)[6:]}"] = errs
+            closed[f"B{app.shape[0]} {res}x{app.shape[-1]} {str(dtype)[6:]}"] = errs
             check(all(math.isfinite(e) for e in errs) and max(errs[:2]) <= 1e-5,
                   f"render_assemble backward kernel vs closed form {res} {dtype}: {errs}")
             scale = want[2].float().abs().max().item()
@@ -830,7 +866,13 @@ def phase_timing(cfg, served: dict, trained: dict, zeros_launches: dict, errs: d
               "plain_device_ms": device_ms(decode_backward(render_assemble_vjp)),
               "bound_ms": sum(bound_ms(*render_backward_bound(TRAIN_BATCH, tk, app.shape[-1],
                                                               res))[0]
-                              for res, app in tscales)}
+                              for res, app in tscales),
+              "scales": [{"scale": f"{res}x{app.shape[-1]}",
+                          "device_ms": device_ms(lambda: render_assemble_backward(
+                              tmu, tlam, app, res, res, tcfg_m.render_kernel, g)),
+                          "bound_ms": bound_ms(*render_backward_bound(
+                              TRAIN_BATCH, tk, app.shape[-1], res))[0]}
+                         for (res, app), g in zip(tscales, cots)]}
     emit("timing_training_shapes", batch=TRAIN_BATCH, softmax_moments=sm_train,
          render_assemble_scales=train_scales, render_assemble_backward=ra_bwd, nvidia_smi=smi)
 
@@ -843,6 +885,7 @@ def phase_timing(cfg, served: dict, trained: dict, zeros_launches: dict, errs: d
     bs = _timed(lambda: bilinear_sample_fused(img, coords),
                 lambda: bilinear_sample_plain(img, coords), bilinear_bound(nw, s * s, 3, 2, s * s))
     bs["grads_device_ms"] = device_ms(lambda: sample_with_grads(img, coords))
+    bs["grads_bound_ms"] = bound_ms(*bilinear_bound(nw, s * s, 3, 2, s * s, grads=True))[0]
     grid = coords.flip(-1)[:, None].to(img.dtype).contiguous()
     nchw = img.permute(0, 3, 1, 2)
 
@@ -935,24 +978,37 @@ def phase_timing(cfg, served: dict, trained: dict, zeros_launches: dict, errs: d
     ]
 
 
+def _backward_rule(baseline: Path):
+    """The tile rule of a checkout's render_assemble backward, loaded from
+    its own wrapper module: (backward_tile, backward_partial_rows or None
+    where the scratch holds one row per tile)."""
+    path = baseline / "partseg_tpu_torch" / "partops" / "kernels" / "render_assemble.py"
+    spec = importlib.util.spec_from_file_location("baseline_render_assemble", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.backward_tile, getattr(mod, "backward_partial_rows", None)
+
+
 def phase_turns(cfg, baseline: Path, smi: str) -> None:
     """The baseline checkout's kernels against this checkout's: each C
-    entry point of both libraries called on the same inputs, device time
-    per call in the order baseline, this, this, baseline. softmax_moments
-    and tps_warp did not change, so their turns show the same-code spread.
-    render_assemble's backward has no kernel in an older baseline: there the
-    baseline side is the plain closed form (render_assemble_vjp), which the
-    wrapper ran on the card before. F.grid_sample is timed beside
-    bilinear_sample."""
+    entry point of both libraries called on the same inputs (outputs and
+    scratch allocated once), device time per call in the order baseline,
+    this, this, baseline, beside the bound. render_assemble's backward
+    kernel is called with each checkout's own tile rule; a baseline
+    without that kernel is timed as the plain closed form
+    (render_assemble_vjp), which the wrapper ran on the card before.
+    F.grid_sample is timed beside bilinear_sample."""
     old = _build.library(baseline / "partseg_tpu_torch" / "csrc")
     new = _build.library()
     dev = torch.device("cuda")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
     launch = _build.launch
 
-    def turns(case: str, make, **extra) -> None:
+    def turns(case: str, make, bound=None, **extra) -> None:
         a, b = make(old), make(new)
         ms = [device_ms(a), device_ms(b), device_ms(b), device_ms(a)]
+        if bound is not None:
+            extra["bound_ms"], extra["bound_by"] = bound_ms(*bound)
         emit("turns", case=case, baseline_device_ms=[ms[0], ms[3]], device_ms=[ms[1], ms[2]],
              nvidia_smi=smi, **extra)
 
@@ -979,36 +1035,85 @@ def phase_turns(cfg, baseline: Path, smi: str) -> None:
         return make
 
     k, size = cfg.n_parts, cfg.map_size
-    turns("softmax_moments serving", softmax_call(serving_logits(gen, k, size)))
+    turns("softmax_moments serving", softmax_call(serving_logits(gen, k, size)),
+          softmax_moments_bound(BATCH, size, size, k))
     tlogits, tmu, tlam, tscales = train_render_inputs(gen, app_dtype=torch.bfloat16)
-    turns("softmax_moments training", softmax_call(tlogits[..., :k]))
+    tm = tlogits.shape[1]
+    turns("softmax_moments training", softmax_call(tlogits[..., :k]),
+          softmax_moments_bound(TRAIN_BATCH, tm, tm, k))
 
     _, mu, sigma = softmax_moments_plain(serving_logits(gen, k, size))
     cases = render_cases(cfg, mu.contiguous(), sigma, gen)
     gauss = int(cfg.render_kernel == "gauss")
+    def forward_bound(scales, b):
+        return tuple(sum(v) for v in zip(*(render_assemble_bound(b, k, app.shape[-1], res)
+                                           for res, app in scales)))
+
+    sscales = [(res, app) for *_, app, res in cases]
     turns("render_assemble serving decode",
-          render_call(cases[0][1], cases[0][2], [(res, app) for *_, app, res in cases], gauss))
+          render_call(cases[0][1], cases[0][2], sscales, gauss), forward_bound(sscales, BATCH))
     tkind = train_config("speed128").model.render_kernel
     turns("render_assemble training decode",
-          render_call(tmu, tlam, tscales, int(tkind == "gauss")))
+          render_call(tmu, tlam, tscales, int(tkind == "gauss")),
+          forward_bound(tscales, TRAIN_BATCH))
+
     cots = [torch.randn((TRAIN_BATCH, res, res, app.shape[-1]), generator=gen, device="cuda")
             for res, app in tscales]
+    rules = {id(old): _backward_rule(baseline), id(new): _backward_rule(Path(__file__).parent)}
 
-    def backward(lib):
-        fn = render_assemble_vjp if lib is old else render_assemble_backward
-        return lambda: [fn(tmu, tlam, app, res, res, tkind, g)
-                        for (res, app), g in zip(tscales, cots)]
+    def backward_call(scales, grads):
+        def make(lib):
+            if not hasattr(lib, "partseg_render_assemble_bwd"):
+                return lambda: [render_assemble_vjp(tmu, tlam, app, res, res, tkind, g)
+                                for (res, app), g in zip(scales, grads)]
+            tile_rule, rows_rule = rules[id(lib)]
+            calls = []
+            for (res, app), g in zip(scales, grads):
+                b, kk, c = app.shape
+                hw = res * res
+                tile = tile_rule(kk, c, hw)
+                rows = rows_rule(kk, c, hw, b, tile) if rows_rule else -(-hw // tile)
+                part = torch.empty((b, max(rows, 1), kk, c + 5), device=dev)
+                outs = (torch.empty((b, kk, c), device=dev, dtype=app.dtype),
+                        torch.empty((b, kk, 2), device=dev), torch.empty((b, kk, 2, 2), device=dev))
+                calls.append((app, g, part, outs, b, kk, c, res, tile))
 
-    turns("render_assemble backward training decode (baseline: render_assemble_vjp)", backward)
+            def run():
+                for app, g, part, (d_app, d_mu, d_lam), b, kk, c, res, tile in calls:
+                    launch("partseg_render_assemble_bwd", dev, tmu.data_ptr(), tlam.data_ptr(),
+                           app.data_ptr(), g.data_ptr(), int(app.dtype == torch.bfloat16),
+                           part.data_ptr(), d_app.data_ptr(), d_mu.data_ptr(), d_lam.data_ptr(),
+                           b, kk, c, res, res, int(tkind == "gauss"), tile, lib=lib)
+            return run
+        return make
+
+    def backward_bound(scales):
+        return tuple(sum(v) for v in zip(*(render_backward_bound(TRAIN_BATCH, k, app.shape[-1], res)
+                                           for res, app in scales)))
+
+    turns("render_assemble backward training decode", backward_call(tscales, cots),
+          backward_bound(tscales))
+    for scale, g in zip(tscales, cots):
+        turns(f"render_assemble backward training {scale[0]}x{scale[1].shape[-1]}",
+              backward_call([scale], [g]), backward_bound([scale]))
 
     img, weights, basis, coords = warp_inputs(gen, torch.bfloat16)
     nw, s = img.shape[0], img.shape[1]
     m = weights.shape[1]
-    kh, tile = band_config(img.dtype, s, s)
     warped = torch.empty_like(img)
-    turns("tps_warp training", lambda lib: lambda: launch(
-        "partseg_tps_warp", dev, img.data_ptr(), 1, weights.data_ptr(), basis.data_ptr(),
-        warped.data_ptr(), nw, s, s, 3, m, tile, kh, lib=lib))
+    tps = tps_warp_bound(nw, s, s, 3, m, 2)
+    prior = os.environ.get("PARTSEG_WARP_BAND")
+    for kh in (0, 56):
+        _with_band(kh)
+        band, tile = band_config(img.dtype, s, s)
+        check(band == kh, f"tps_warp band {band}, expected {kh}")
+        turns(f"tps_warp training{f' band kh={kh}' if kh else ''}",
+              lambda lib, band=band, tile=tile: lambda: launch(
+                  "partseg_tps_warp", dev, img.data_ptr(), 1, weights.data_ptr(),
+                  basis.data_ptr(), warped.data_ptr(), nw, s, s, 3, m, tile, band, lib=lib), tps)
+    _with_band(0)
+    if prior is not None:
+        os.environ["PARTSEG_WARP_BAND"] = prior
     n = coords.shape[1]
     out = torch.empty((nw, n, 3), device=dev, dtype=img.dtype)
     outs = [torch.empty((nw, n, 3), device=dev) for _ in range(3)]
@@ -1022,10 +1127,11 @@ def phase_turns(cfg, baseline: Path, smi: str) -> None:
     library = [device_ms(grid_sample)]
     turns("bilinear_sample training", lambda lib: lambda: launch(
         "partseg_bilinear_sample", dev, img.data_ptr(), 1, coords.data_ptr(), out.data_ptr(),
-        None, None, nw, s, s, 3, n, 0, lib=lib))
+        None, None, nw, s, s, 3, n, 0, lib=lib), bilinear_bound(nw, n, 3, 2, s * s))
     turns("bilinear_sample grads variant training", lambda lib: lambda: launch(
         "partseg_bilinear_sample", dev, img.data_ptr(), 1, coords.data_ptr(), outs[0].data_ptr(),
-        outs[1].data_ptr(), outs[2].data_ptr(), nw, s, s, 3, n, 1, lib=lib))
+        outs[1].data_ptr(), outs[2].data_ptr(), nw, s, s, 3, n, 1, lib=lib),
+        bilinear_bound(nw, n, 3, 2, s * s, grads=True))
     library.append(device_ms(grid_sample))
     emit("turns", case="F.grid_sample training (library)", device_ms=library, nvidia_smi=smi)
 
@@ -1044,7 +1150,7 @@ def main() -> int:
         return 0
     errs = phase_kernels(cfg)
     errs.update(phase_warp_kernels())
-    phase_backward()
+    phase_backward(cfg)
     served = phase_serving(cfg)
     phase_parity(cfg)
     trained = phase_train()

@@ -27,20 +27,33 @@
 // from μ and Λ, g_φ[u,k] = Σ_c g[u,c]·a[k,c], g_d = g_φ·dφ/dd, and per part
 //   d_app[k,c] = Σ_u φ·g,   d_μ = −2Λ·Σ_u g_d·diff,   d_sym = Σ_u g_d·diff·diffᵀ,
 // the whole off-diagonal on d_lam[..,0,1] and 0 on [..,1,0], no mask where
-// the clamp was active. Bound: one read of g. Each block stages a tile of g
-// (coalesced float4 loads) and a[b] in shared memory, rows padded to an odd
-// stride so threads reading different rows hit different banks; then (1)
-// every thread takes (pixel, part) pairs and forms φ and g_d; (2) a warp per
-// part reduces the five sums Σ g_d·{dy, dx, dy², dy·dx, dx²} over the tile
-// with a fixed butterfly, while the other threads sum φ·g per (part,
-// channel). The per-tile partials [B, tiles, K, C + 5] go to an f32
-// scratch, and a second launch sums them over tiles in a fixed order and
-// forms d_μ, d_Λ, d_app: the result is the same bits on every run.
+// the clamp was active. What bounds it: one read of the f32 cotangent g
+// (4·H·W·C bytes per image); the work is ~4 flops per element of g per part
+// (K = 10: ~10 flop/byte, below the f32 ridge), so no tensor cores.
+// A first design staged g and a in shared memory and issued two scalar
+// shared loads per FMA in both sums, then summed per-tile partials in a
+// second launch; shared memory and the two launches bounded it. The
+// register-tiled kernel (K <= 12, C <= 128, the decoders' shapes) applies
+// the forward's remedy: a lane holds a[k][its channel quad] in registers,
+// reads g straight from device memory as float4 (a few pixels ahead), and
+// keeps d_app[k][quad] in registers over all its pixels; φ rows come as
+// broadcast float4s from shared memory. The per-pixel g_φ is a sum over the
+// quads of a pixel row: a reduce-scatter butterfly of shuffles leaves each
+// lane the whole g_φ of a few parts, and that lane adds the five sums
+// Σ g_d·{dy, dx, dy², dy·dx, dx²}. An image of at most 8 tiles is one
+// thread block cluster, which sums its CTAs' partials through distributed
+// shared memory in rank order: one launch. Larger images (the serving
+// decoder's 64² and 128²) write per-block partials that a second launch
+// sums in block order. Other K and C keep that first design (the staging kernel pair). No
+// atomics anywhere: the result is the same bits on every run.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -77,6 +90,22 @@ __device__ __forceinline__ float2 pixel_coord(int n, int h, int w) {
   const int xi = n - yi * w;
   return make_float2(-1.0f + (2.0f * ((float)yi + 0.5f)) / (float)h,
                      -1.0f + (2.0f * ((float)xi + 0.5f)) / (float)w);
+}
+
+// One step of a reduce-scatter butterfly over lanes `mask` apart: a lane
+// keeps the lower (or, with `upper`, the upper) kHalf of v[0, 2·kHalf) and
+// adds its partner's copy of them into v[0, kHalf). kHalf is a compile-time
+// constant, so every index is one and v stays in registers.
+template <int kHalf, int kN>
+__device__ __forceinline__ void halve(float (&v)[kN], bool upper, int mask) {
+#pragma unroll
+  for (int e = 0; e < kHalf; ++e) {
+    const float lo = v[e];
+    const float hi = v[e + kHalf];
+    const float send = upper ? lo : hi;
+    const float keep = upper ? hi : lo;
+    v[e] = keep + __shfl_xor_sync(0xffffffffu, send, mask);
+  }
 }
 
 // φ of one part at offset (dy, dx) from its mean, and dφ/dd. Clamp: a
@@ -339,9 +368,24 @@ render_assemble_bwd_partials(const float* __restrict__ mu, const float* __restri
   }
 }
 
-// One block per image: sums the tiles' partials in tile order, then
-// d_app (in the appearance dtype), d_μ = −2Λ·(Σ g_d·dy, Σ g_d·dx) and
-// d_Λ = [[Σ g_d·dy², 2·Σ g_d·dy·dx], [0, Σ g_d·dx²]].
+// d_μ = −2Λ·(s0, s1) and d_Λ = [[s2, 2·s3], [0, s4]] of part p of image b
+// from its five sums s = Σ g_d·{dy, dx, dy², dy·dx, dx²}.
+__device__ __forceinline__ void part_grads(const float* __restrict__ lam, const float* s,
+                                           float* __restrict__ d_mu, float* __restrict__ d_lam,
+                                           int b, int k, int p) {
+  const float* l = lam + ((size_t)b * k + p) * 4;
+  float* dm = d_mu + ((size_t)b * k + p) * 2;
+  dm[0] = -2.0f * (l[0] * s[0] + l[1] * s[1]);
+  dm[1] = -2.0f * (l[2] * s[0] + l[3] * s[1]);
+  float* dl = d_lam + ((size_t)b * k + p) * 4;
+  dl[0] = s[2];
+  dl[1] = s[3] + s[3];
+  dl[2] = 0.0f;
+  dl[3] = s[4];
+}
+
+// One block per image: sums the partials of `tiles` blocks in block order,
+// then d_app (in the appearance dtype), d_μ and d_Λ.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 render_assemble_bwd_finish(const float* __restrict__ lam, const float* __restrict__ part,
@@ -361,24 +405,316 @@ render_assemble_bwd_finish(const float* __restrict__ lam, const float* __restric
     else sums[p][ch - c] = acc;
   }
   __syncthreads();
-  for (int p = threadIdx.x; p < k; p += kThreads) {
-    const float* l = lam + ((size_t)b * k + p) * 4;
-    const float* s = sums[p];
-    float* dm = d_mu + ((size_t)b * k + p) * 2;
-    dm[0] = -2.0f * (l[0] * s[0] + l[1] * s[1]);
-    dm[1] = -2.0f * (l[2] * s[0] + l[3] * s[1]);
-    float* dl = d_lam + ((size_t)b * k + p) * 4;
-    dl[0] = s[2];
-    dl[1] = s[3] + s[3];
-    dl[2] = 0.0f;
-    dl[3] = s[4];
-  }
+  for (int p = threadIdx.x; p < k; p += kThreads) part_grads(lam, sums[p], d_mu, d_lam, b, k, p);
 }
 
+// The register-tiled backward, for K <= 4·kBwdKQ and C <= 4·kBwdMaxQuads.
+// A pixel row is 2^kL lanes of one warp (the channel quads, 2^kL >= C/4);
+// kThreads >> kL rows walk a tile's pixels together. Each lane accumulates
+// d_app[0..K)[its quad] (da) over all its pixels in registers. Per pixel it
+// reads g[pixel][its quad] as one float4 (kPrefetch pixels ahead), adds
+// φ[t][k]·g to da (φ rows from shared memory as broadcast float4s: one load
+// per 16 FMAs), and forms its share of g_φ[t][k] = Σ_quad g·a[k][quad]
+// (a from shared memory too, so that two CTAs fit an SM's registers). A
+// reduce-scatter butterfly over the row's
+// lanes (16 values: halve, exchange the other half, add) leaves each lane
+// the whole g_φ of 16 >> min(kL, 4) parts, in a fixed order, for
+// 8 + 4 + 2 + 1 shuffles instead of 16 per step. That lane forms
+// g_d = g_φ·dφ/dd and adds g_d·{dy, dx, dy², dy·dx, dx²} for its parts.
+// A tile's φ, dφ/dd and pixel coordinates are computed once per pixel into
+// shared memory first. The block walks tiles blockIdx.x, + gridDim.x, ...
+// of image blockIdx.y, then sums its rows (shuffles within a warp, then the
+// warps in order through shared memory). With `to_part` it writes its sums
+// to part[b][blockIdx.x] for the finish kernel; otherwise its CTAs are one
+// cluster per image, and CTA r sums parts r, r + gridDim.x, ... over the
+// cluster's CTAs in rank order through distributed shared memory and writes
+// their d_app, d_μ and d_Λ: one launch.
+constexpr int kBwdKQ = 3;
+constexpr int kBwdMaxQuads = 32;
+constexpr int kBwdMaxCluster = 8;
+constexpr int kBwdTile = 256;       // the most pixels of a tile
+constexpr int kBwdResident = 264;   // CTAs the H100 holds at once (two to an SM)
+constexpr int kPrefetch = 2;        // g loads in flight per lane
+
+template <typename T, bool kGauss, int kL>
+__global__ void __launch_bounds__(kThreads, 2)
+render_assemble_bwd_tiled(const float* __restrict__ mu, const float* __restrict__ lam,
+                          const T* __restrict__ app, const float* __restrict__ g,
+                          float* __restrict__ part, T* __restrict__ d_app,
+                          float* __restrict__ d_mu, float* __restrict__ d_lam, int k, int c,
+                          int h, int w, int tile, int to_part) {
+  constexpr int kP = 4 * kBwdKQ;
+  constexpr int kQX = 1 << kL;
+  constexpr int kRows = kThreads >> kL;
+  constexpr int kV = 16;                        // g_φ values per lane, padded
+  constexpr int kSteps = kL < 4 ? kL : 4;       // halving steps of the butterfly
+  constexpr int kHeld = kV >> kSteps;           // parts a lane holds after them
+  __shared__ float par[5][kMaxParts];
+  __shared__ float4 phi_s[kBwdTile * kBwdKQ];   // φ[t][0..kP), zeros beyond k and npix
+  __shared__ float4 dphi_s[kBwdTile * kBwdKQ];  // dφ/dd, the same layout
+  __shared__ float2 u_s[kBwdTile];              // pixel-centre coordinates (y, x)
+  __shared__ float4 a_s[kP][kBwdMaxQuads];      // a[k][quad], zeros beyond k and c
+  __shared__ float4 res_app[kP][kBwdMaxQuads];  // the block's Σ φ·g per (part, quad)
+  __shared__ float res_s5[kV][5];               // the block's five sums per part
+
+  const int b = blockIdx.y;
+  const int hw = h * w;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int q = tid & (kQX - 1);
+  const int r = tid >> kL;
+  const int nq = (c + 3) / 4;
+  const bool vec = (c & 3) == 0 && (reinterpret_cast<uintptr_t>(g) & 15) == 0;
+  load_parts(mu, lam, b, k, par);
+  for (int i = tid; i < kP * kBwdMaxQuads; i += kThreads) {
+    const int p = i / kBwdMaxQuads;
+    const int c0 = 4 * (i - p * kBwdMaxQuads);
+    float e[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (p < k) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (c0 + j < c) e[j] = to_f32(app[((size_t)b * k + p) * c + c0 + j]);
+    }
+    a_s[p][c0 / 4] = make_float4(e[0], e[1], e[2], e[3]);
+  }
+  float4 da[kP];
+#pragma unroll
+  for (int p = 0; p < kP; ++p) da[p] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  float s5[kHeld][5];
+#pragma unroll
+  for (int i = 0; i < kHeld; ++i)
+#pragma unroll
+    for (int j = 0; j < 5; ++j) s5[i][j] = 0.0f;
+  int off = 0;   // the first part this lane holds after the butterfly
+#pragma unroll
+  for (int st = 0; st < kSteps; ++st) off += ((q >> st) & 1) * (kV >> (st + 1));
+  __syncthreads();
+
+  float* phi_f = reinterpret_cast<float*>(phi_s);
+  float* dphi_f = reinterpret_cast<float*>(dphi_s);
+  for (int p0 = blockIdx.x * tile; p0 < hw; p0 += gridDim.x * tile) {
+    const int npix = min(tile, hw - p0);
+    for (int t = tid; t < tile; t += kThreads) {   // a pixel per thread, all its parts
+      const float2 u = pixel_coord(p0 + min(t, npix - 1), h, w);
+      u_s[t] = u;
+#pragma unroll
+      for (int p = 0; p < kP; ++p) {
+        float phi = 0.0f, dphi = 0.0f;
+        if (t < npix && p < k)
+          phi = part_phi<kGauss>(par, p, u.x - par[0][p], u.y - par[1][p], &dphi);
+        phi_f[t * kP + p] = phi;
+        dphi_f[t * kP + p] = dphi;
+      }
+    }
+    __syncthreads();
+    const float* gb = g + ((size_t)b * hw + p0) * c + 4 * q;
+    // g[pixel t0 + r] of this lane's quad; 0 past the tile or the channels.
+    auto load_g = [&](int t0) {
+      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (t0 + r < npix && q < nq) {
+        const float* gp = gb + (size_t)(t0 + r) * c;
+        if (vec) {
+          v = __ldg(reinterpret_cast<const float4*>(gp));
+        } else {
+          float e[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (4 * q + j < c) e[j] = __ldg(gp + j);
+          v = make_float4(e[0], e[1], e[2], e[3]);
+        }
+      }
+      return v;
+    };
+    float4 gq[kPrefetch];
+#pragma unroll
+    for (int i = 0; i < kPrefetch; ++i) gq[i] = load_g(i * kRows);
+    // Every row runs the same trip count, so the shuffles see whole warps;
+    // a row past the tile's end carries g = 0.
+    for (int base = 0; base < npix; base += kPrefetch * kRows) {
+#pragma unroll
+      for (int i = 0; i < kPrefetch; ++i) {
+        const int t0 = base + i * kRows;
+        if (t0 >= npix) continue;   // the same for the whole block
+        const float4 g4 = gq[i];
+        gq[i] = load_g(t0 + kPrefetch * kRows);
+        const int t = t0 + r < npix ? t0 + r : 0;
+        float v[kV];
+        const float4* ph = phi_s + t * kBwdKQ;
+#pragma unroll
+        for (int kq = 0; kq < kBwdKQ; ++kq) {
+          const float4 f = ph[kq];
+          const float fs[4] = {f.x, f.y, f.z, f.w};
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int p = 4 * kq + j;
+            const float4 a = a_s[p][q];
+            v[p] = fmaf(g4.x, a.x, fmaf(g4.y, a.y, fmaf(g4.z, a.z, g4.w * a.w)));
+            da[p].x = fmaf(fs[j], g4.x, da[p].x);
+            da[p].y = fmaf(fs[j], g4.y, da[p].y);
+            da[p].z = fmaf(fs[j], g4.z, da[p].z);
+            da[p].w = fmaf(fs[j], g4.w, da[p].w);
+          }
+        }
+#pragma unroll
+        for (int p = kP; p < kV; ++p) v[p] = 0.0f;
+        // Reduce-scatter over the row's lanes: at step st a lane keeps the
+        // half of its values chosen by bit st of q and adds its partner's.
+        if constexpr (kSteps > 0) halve<8>(v, q & 1, 1);
+        if constexpr (kSteps > 1) halve<4>(v, (q >> 1) & 1, 2);
+        if constexpr (kSteps > 2) halve<2>(v, (q >> 2) & 1, 4);
+        if constexpr (kSteps > 3) halve<1>(v, (q >> 3) & 1, 8);
+        if constexpr (kL == 5) v[0] += __shfl_xor_sync(0xffffffffu, v[0], 16);   // l, l ^ 16 agree
+        const float2 u = u_s[t];
+#pragma unroll
+        for (int e = 0; e < kHeld; ++e) {
+          const int p = off + e;
+          if (p < k) {
+            const float gd = v[e] * dphi_f[t * kP + p];
+            const float dy = u.x - par[0][p];
+            const float dx = u.y - par[1][p];
+            s5[e][0] = fmaf(gd, dy, s5[e][0]);
+            s5[e][1] = fmaf(gd, dx, s5[e][1]);
+            s5[e][2] = fmaf(gd * dy, dy, s5[e][2]);
+            s5[e][3] = fmaf(gd * dy, dx, s5[e][3]);
+            s5[e][4] = fmaf(gd * dx, dx, s5[e][4]);
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  // The block's rows: a butterfly over the rows within a warp, then the
+  // warps in order through shared memory.
+#pragma unroll
+  for (int m = kQX; m < 32; m <<= 1) {
+#pragma unroll
+    for (int p = 0; p < kP; ++p) {
+      da[p].x += __shfl_xor_sync(0xffffffffu, da[p].x, m);
+      da[p].y += __shfl_xor_sync(0xffffffffu, da[p].y, m);
+      da[p].z += __shfl_xor_sync(0xffffffffu, da[p].z, m);
+      da[p].w += __shfl_xor_sync(0xffffffffu, da[p].w, m);
+    }
+#pragma unroll
+    for (int e = 0; e < kHeld; ++e)
+#pragma unroll
+      for (int j = 0; j < 5; ++j) s5[e][j] += __shfl_xor_sync(0xffffffffu, s5[e][j], m);
+  }
+  const int warp = tid >> 5;
+  for (int wi = 0; wi < kWarps; ++wi) {
+    if (warp == wi && lane < kQX) {
+#pragma unroll
+      for (int p = 0; p < kP; ++p) {
+        float4& dst = res_app[p][q];
+        dst = wi == 0 ? da[p] : make_float4(dst.x + da[p].x, dst.y + da[p].y, dst.z + da[p].z,
+                                            dst.w + da[p].w);
+      }
+      if (lane < 16) {   // with 32 lanes to a row, lanes l and l ^ 16 hold the same sums
+#pragma unroll
+        for (int e = 0; e < kHeld; ++e)
+#pragma unroll
+          for (int j = 0; j < 5; ++j)
+            res_s5[off + e][j] = wi == 0 ? s5[e][j] : res_s5[off + e][j] + s5[e][j];
+      }
+    }
+    __syncthreads();
+  }
+
+  const float* app_f = reinterpret_cast<const float*>(&res_app[0][0]);
+  if (to_part) {
+    const int row = c + 5;
+    float* pb = part + ((size_t)b * gridDim.x + blockIdx.x) * k * row;
+    for (int i = tid; i < k * c; i += kThreads) {
+      const int p = i / c;
+      const int ch = i - p * c;
+      pb[p * row + ch] = app_f[(p * kBwdMaxQuads) * 4 + ch];
+    }
+    for (int i = tid; i < k * 5; i += kThreads) {
+      const int p = i / 5;
+      pb[p * row + c + (i - p * 5)] = res_s5[p][i - p * 5];
+    }
+    return;
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int cs = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int mine = (k - rank + cs - 1) / cs;   // parts rank, rank + cs, ...
+  for (int i = tid; i < mine * c; i += kThreads) {
+    const int p = rank + cs * (i / c);
+    const int ch = i % c;
+    float acc = 0.0f;
+    for (int rk = 0; rk < cs; ++rk)
+      acc += cluster.map_shared_rank(app_f, rk)[(p * kBwdMaxQuads) * 4 + ch];
+    store_as(d_app + ((size_t)b * k + p) * c + ch, acc);
+  }
+  for (int i = tid; i < mine; i += kThreads) {
+    const int p = rank + cs * i;
+    float sm[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    for (int rk = 0; rk < cs; ++rk) {
+      const float* rs = cluster.map_shared_rank(&res_s5[p][0], rk);
+#pragma unroll
+      for (int j = 0; j < 5; ++j) sm[j] += rs[j];
+    }
+    part_grads(lam, sm, d_mu, d_lam, b, k, p);
+  }
+  cluster.sync();   // no CTA leaves while another reads its shared memory
+}
+
+template <typename T, bool kGauss, int kL>
+cudaError_t launch_tiled(const float* mu, const float* lam, const void* app, const float* g,
+                         float* part, void* d_app, float* d_mu, float* d_lam, int b, int k,
+                         int c, int h, int w, int tile, cudaStream_t stream) {
+  const int tiles = (h * w + tile - 1) / tile;
+  auto kernel = render_assemble_bwd_tiled<T, kGauss, kL>;
+  const T* a = static_cast<const T*>(app);
+  T* da = static_cast<T*>(d_app);
+  if (tiles > kBwdMaxCluster) {   // partials, then the fixed-order finish
+    const int shares = min(tiles, max(1, kTargetBlocks / b));
+    kernel<<<dim3(shares, b), kThreads, 0, stream>>>(mu, lam, a, g, part, da, d_mu, d_lam, k, c,
+                                                     h, w, tile, 1);
+    render_assemble_bwd_finish<T><<<b, kThreads, 0, stream>>>(lam, part, da, d_mu, d_lam, k, c,
+                                                              shares);
+    return cudaGetLastError();
+  }
+  // A cluster of CTAs per image, as many as the card holds at once.
+  const int cs = min(tiles, max(1, kBwdResident / b));
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cs, b);
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, mu, lam, a, g, part, da, d_mu, d_lam,
+                                             k, c, h, w, tile, 0);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// The rule, mirrored by partops/kernels/render_assemble.py
+// (backward_plan): the register-tiled kernel takes K <= 12 and C <= 128,
+// with rows of 2^kL lanes, 2^kL the least power of two >= C/4; the staging
+// kernel pair takes the rest.
 template <typename T, bool kGauss>
 cudaError_t launch_backward(const float* mu, const float* lam, const void* app, const float* g,
                             float* part, void* d_app, float* d_mu, float* d_lam, int b, int k,
                             int c, int h, int w, int tile, cudaStream_t stream) {
+  const int nq = (c + 3) / 4;
+  if (k <= 4 * kBwdKQ && nq <= kBwdMaxQuads) {
+#define PARTSEG_TILED(L) \
+  launch_tiled<T, kGauss, L>(mu, lam, app, g, part, d_app, d_mu, d_lam, b, k, c, h, w, tile, stream)
+    if (nq <= 1) return PARTSEG_TILED(0);
+    if (nq <= 2) return PARTSEG_TILED(1);
+    if (nq <= 4) return PARTSEG_TILED(2);
+    if (nq <= 8) return PARTSEG_TILED(3);
+    if (nq <= 16) return PARTSEG_TILED(4);
+    return PARTSEG_TILED(5);
+#undef PARTSEG_TILED
+  }
   const int tiles = (h * w + tile - 1) / tile;
   const size_t smem = ((size_t)k * (c | 1) + (size_t)tile * ((c | 1) + 2 * k + 2)) * sizeof(float);
   auto partials = render_assemble_bwd_partials<T, kGauss>;

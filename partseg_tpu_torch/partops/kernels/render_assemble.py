@@ -13,11 +13,12 @@ computes out[b, u, c] = Σ_k φ_k(u)·a[b, k, c] without writing the
 - its backward is the closed form of the JAX ``_bwd``: it recomputes φ,
   and puts the whole off-diagonal Λ cotangent on ``[..., 0, 1]`` because
   the forward reads only that entry (doubled). On a CUDA tensor the
-  backward kernel of the same file computes it (two launches: per-tile
-  partial sums, then a fixed-order sum over tiles, so the result is the
-  same on every run); on a CPU tensor ``render_assemble_vjp``, the plain
+  backward kernels of the same file compute it (one launch where a
+  thread block cluster takes a whole image, else per-block partial sums
+  and a fixed-order sum over them: no atomics, so the result is the same
+  on every run); on a CPU tensor ``render_assemble_vjp``, the plain
   version, does. ``render_assemble.backward_launches`` counts the
-  kernel's backward calls.
+  wrapper's calls that launch them.
 """
 
 from __future__ import annotations
@@ -31,11 +32,20 @@ from partseg_tpu_torch.partops.render import RENDER_KERNELS, render_gaussians
 
 MAX_PARTS = 32           # kMaxParts in csrc/render_assemble.cu
 MAX_BATCH = 65535        # gridDim.y
-# The backward kernel stages a[K, C | 1], and g[tile, C | 1], φ[tile, K],
-# g_d[tile, K] and the pixel coordinates [tile, 2] (f32) per block in
-# shared memory, beside 5·MAX_PARTS floats of static parameters. Its tile
-# keeps within SMEM_BUDGET (three blocks to an SM), and takes up to the
-# H100's 227 KB per block (an opt-in above 48 KB) only at its least, 32.
+# The backward has two kernels. The register-tiled one takes K <= TILED_PARTS
+# and C <= TILED_CHANNELS: an image of at most MAX_CLUSTER tiles is one
+# thread block cluster (one launch), a larger one is walked by
+# min(tiles, TARGET_BLOCKS // B) blocks whose partial sums a second launch
+# adds up. Otherwise the staging kernel pair stages a[K, C | 1], and
+# g[tile, C | 1], φ[tile, K], g_d[tile, K] and the pixel coordinates
+# [tile, 2] (f32) per block in shared memory, beside 5·MAX_PARTS floats of
+# static parameters; its tile keeps within SMEM_BUDGET (three blocks to an
+# SM), and takes up to the H100's 227 KB per block (an opt-in above 48 KB)
+# only at its least, 32.
+TILED_PARTS = 12         # 4·kBwdKQ
+TILED_CHANNELS = 128     # 4·kBwdMaxQuads
+MAX_CLUSTER = 8          # kBwdMaxCluster
+TARGET_BLOCKS = 1024     # kTargetBlocks
 BWD_TILE = 256           # most pixels per backward block
 SMEM_BUDGET = 64 * 1024
 SMEM_OPT_IN = 232448
@@ -43,18 +53,33 @@ STATIC_SMEM = 5 * MAX_PARTS * 4
 
 
 def backward_smem(k: int, c: int, tile: int) -> int:
-    """Shared memory of one backward block, in bytes."""
+    """Shared memory of one block of the staging backward kernel, in bytes."""
     return (k * (c | 1) + tile * ((c | 1) + 2 * k + 2)) * 4 + STATIC_SMEM
 
 
 def backward_tile(k: int, c: int, hw: int) -> int:
-    """Pixels per block of the backward kernel: the largest power of two
-    from 32 to BWD_TILE below 2·H·W whose staging fits SMEM_BUDGET, else
-    32. Ragged tiles measured slower on the H100."""
+    """Pixels per tile of the backward kernel.
+
+    Register-tiled (K <= 12, C <= 128): 64 for images of at most 128
+    pixels, 128 up to 512 pixels (two CTAs to an image), else BWD_TILE.
+    Staging: the largest power of two from 32 to BWD_TILE below 2·H·W
+    whose staging fits SMEM_BUDGET, else 32 (ragged tiles measured
+    slower)."""
+    if k <= TILED_PARTS and c <= TILED_CHANNELS:
+        return 64 if hw <= 128 else 128 if hw <= 512 else BWD_TILE
     tile = BWD_TILE
     while tile > 32 and (tile >= 2 * hw or backward_smem(k, c, tile) > SMEM_BUDGET):
         tile //= 2
     return tile
+
+
+def backward_partial_rows(k: int, c: int, hw: int, b: int, tile: int) -> int:
+    """Rows of partial sums per image in the backward's scratch: none where
+    one cluster takes the image, else one per block."""
+    tiles = -(-hw // tile)
+    if k <= TILED_PARTS and c <= TILED_CHANNELS:
+        return 0 if tiles <= MAX_CLUSTER else min(tiles, max(1, TARGET_BLOCKS // b))
+    return tiles
 
 
 def render_assemble_plain(mu, lam, app, h: int, w: int, kernel: str = "gauss"):
@@ -106,13 +131,14 @@ def _launch_backward(mu, lam, app, h, w, kernel, g):
     dev = app.device
     g = g.float().contiguous()
     tile = backward_tile(k, c, h * w)
-    part = torch.empty((b, -(-(h * w) // tile), k, c + 5), device=dev, dtype=torch.float32)
+    rows = backward_partial_rows(k, c, h * w, b, tile)
+    part = torch.empty((b, rows, k, c + 5), device=dev, dtype=torch.float32) if rows else None
     d_mu = torch.empty((b, k, 2), device=dev, dtype=torch.float32)
     d_lam = torch.empty((b, k, 2, 2), device=dev, dtype=torch.float32)
     d_app = torch.empty((b, k, c), device=dev, dtype=app.dtype)
     _build.launch("partseg_render_assemble_bwd", dev,
                   mu.data_ptr(), lam.data_ptr(), app.data_ptr(), g.data_ptr(),
-                  int(app.dtype == torch.bfloat16), part.data_ptr(), d_app.data_ptr(),
+                  int(app.dtype == torch.bfloat16), part.data_ptr() if rows else None, d_app.data_ptr(),
                   d_mu.data_ptr(), d_lam.data_ptr(), b, k, c, h, w, int(kernel == "gauss"), tile)
     render_assemble.backward_launches += 1
     return d_mu, d_lam, d_app

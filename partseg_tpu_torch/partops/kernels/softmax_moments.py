@@ -2,9 +2,10 @@
 
 Replaces the Pallas TPU kernel ``partseg_tpu/partops/pallas/softmax_moments.py``
 (``softmax_moments``). The CUDA kernel (``csrc/softmax_moments.cu``) reads
-the f32 logits once per pass and writes the part distributions and the
-raw moments (E[y], E[x], E[y²], E[yx], E[x²]) per (b, k); μ and Σ are
-formed here with the same raw-moment formula as ``moments_from_raw``.
+the f32 logits from device memory once (a thread block cluster per image)
+and writes the part distributions and the raw moments (E[y], E[x], E[y²],
+E[yx], E[x²]) per (b, k); μ and Σ are formed here with the same raw-moment
+formula as ``moments_from_raw``.
 
 ``softmax_moments`` is an autograd Function. Its forward launches the
 kernel on a CUDA tensor (or raises) and runs the plain version
@@ -23,6 +24,9 @@ from partseg_tpu_torch.partops.kernels import _build
 from partseg_tpu_torch.partops.moments import moments_from_raw, soft_argmax_moments
 from partseg_tpu_torch.partops.softmax import spatial_softmax
 
+MAX_PARTS = 64           # kMaxParts in csrc/softmax_moments.cu
+
+
 def softmax_moments_plain(logits: torch.Tensor):
     """The plain PyTorch version: (parts, mu, sigma), all f32."""
     parts = spatial_softmax(logits)
@@ -39,6 +43,8 @@ def _check(logits: torch.Tensor) -> int:
             f"softmax_moments takes non-empty [B, H, W, K] logits, got {tuple(logits.shape)}"
         )
     b, h, w, k = logits.shape
+    if k > MAX_PARTS:
+        raise ValueError(f"softmax_moments takes at most {MAX_PARTS} parts, got {k}")
     ld = logits.stride(2)
     # Pixels may be strided (the foreground slice of [B, H, W, K+1] logits),
     # but the K parts of a pixel are adjacent and pixels are evenly spaced.

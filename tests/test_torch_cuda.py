@@ -92,6 +92,32 @@ def test_softmax_moments_kernel_matches_plain(cuda, delta):
     torch.testing.assert_close(got[2], want[2], rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("delta", [False, True])
+@pytest.mark.parametrize("b,h,w,k", [
+    (256, 64, 64, 10), (128, 32, 32, 10),     # celeba serving, speed128 training
+    (1, 64, 64, 10), (1, 128, 128, 10),       # one image: 8 CTAs; a run staged above 48 KB
+    (1, 256, 256, 10),                        # a run too large to stage: read twice
+    (2, 17, 13, 3), (3, 17, 13, 7),           # odd K; H·W not a multiple of 4
+    (3, 17, 13, 10),                          # images 2 and 3 start off 16-byte alignment
+])
+def test_softmax_moments_kernel_shapes(cuda, b, h, w, k, delta):
+    """Every launch shape of the cluster kernel, through the strided
+    [..., :K] view of K+1 logits, against the plain version; two calls
+    give the same bits (no atomics, sums in a fixed order)."""
+    x = 3.0 * np.random.default_rng(b * 1000 + h * 10 + k).standard_normal((b, h, w, k + 1))
+    if delta:
+        x[:, h // 3, w // 2, :k] = 80.0          # one-hot part maps: a singular Σ
+    fg = torch.from_numpy(x.astype(np.float32)).to(cuda)[..., :k]
+    got = softmax_moments(fg)
+    want = softmax_moments_plain(fg)
+    again = softmax_moments(fg)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-30)
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-5)
+    torch.testing.assert_close(got[2], want[2], rtol=0, atol=1e-5)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
 @pytest.mark.parametrize("kernel", ["gauss", "heavy_tail"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("res,c", [(16, 256), (128, 32), (20, 3)])
@@ -162,6 +188,35 @@ def test_render_assemble_backward_kernel_matches_closed_form(cuda, kernel, dtype
     assert not got[1][..., 1, 0].any()
     again = render_assemble_backward(mu, lam, app, res, res, kernel, g)
     assert all(torch.equal(a, b) for a, b in zip(got, again))       # a fixed summation order
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,res,k,c", [
+    (128, 8, 10, 96), (128, 16, 10, 48), (128, 32, 10, 24),   # speed128: one cluster per image
+    (4, 64, 10, 64), (2, 128, 10, 32),                        # celeba 64², 128²: partial sums
+    (3, 32, 7, 30), (5, 64, 5, 13),                           # odd K, C not a multiple of 4
+    (2, 24, 12, 128), (2, 20, 1, 4),                          # 32 and 1 lanes to a pixel row
+    (2, 40, 13, 8),                                           # K > 12: the staging kernel
+])
+def test_render_assemble_backward_kernel_paths(cuda, dtype, b, res, k, c):
+    """Each path of the backward kernels against render_assemble_vjp:
+    the register-tiled kernel as one cluster per image (up to 8 tiles) and
+    as partial sums with a finish launch, every row width, and the staging
+    kernel; repeats give the same bits."""
+    mu, lam, app = _backward_inputs(cuda, k=k, c=c, b=b, seed=res + c)
+    app = app.to(dtype)
+    g = torch.randn((b, res, res, c), generator=torch.Generator().manual_seed(res)).to(cuda)
+    got = render_assemble_backward(mu, lam, app, res, res, "gauss", g)
+    want = render_assemble_vjp(mu, lam, app, res, res, "gauss", g)
+    again = render_assemble_backward(mu, lam, app, res, res, "gauss", g)
+    torch.cuda.synchronize()
+    for name, a, w in zip(("d_mu", "d_lam", "d_app"), got, want):
+        scale = w.float().abs().max().item()
+        rtol = 2 ** -7 if (name == "d_app" and dtype == torch.bfloat16) else 0.0
+        torch.testing.assert_close(a.float(), w.float(), rtol=rtol, atol=1e-5 * scale,
+                                   msg=lambda m, name=name: f"{name}: {m}")
+    assert got[2].dtype == dtype
+    assert all(torch.equal(a, w) for a, w in zip(got, again))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -33,8 +33,12 @@ from partseg_tpu_torch.partops.kernels import (
     softmax_moments,
 )
 from partseg_tpu_torch.partops.kernels.render_assemble import (
+    MAX_CLUSTER,
     SMEM_BUDGET,
     SMEM_OPT_IN,
+    TILED_CHANNELS,
+    TILED_PARTS,
+    backward_partial_rows,
     backward_smem,
     backward_tile,
 )
@@ -150,6 +154,8 @@ def test_softmax_moments_rejects_what_the_kernel_does_not_take():
         softmax_moments(x.permute(0, 3, 1, 2))        # parts not adjacent
     with pytest.raises(ValueError):
         softmax_moments(x[:0])                        # empty
+    with pytest.raises(ValueError):
+        softmax_moments(torch.zeros((1, 2, 2, 65)))   # K > 64
 
 
 # ------------------------------------------------------------ render_assemble
@@ -197,17 +203,28 @@ def test_render_assemble_rejects_what_the_kernel_does_not_take():
                         torch.zeros((1, 16, 2048)), 8, 8)
 
 
-@pytest.mark.parametrize("k,c,hw,tile", [
-    (10, 96, 64, 64), (10, 48, 256, 128), (10, 24, 1024, 256),   # the speed128 decoder
-    (10, 256, 256, 32), (4, 7, 20, 32),
-    (10, 1000, 64, 32),                                          # above 64 KB: 32 pixels
+@pytest.mark.parametrize("k,c,hw,b,tile,rows", [
+    (10, 96, 64, 128, 64, 0), (10, 48, 256, 128, 128, 0),       # the speed128 decoder:
+    (10, 24, 1024, 128, 256, 0),                                # one cluster per image
+    (4, 7, 20, 2, 64, 0), (10, 24, 2048, 1, 256, 0),            # a ragged tile; 8 tiles
+    (10, 24, 2304, 1, 256, 9),                                  # 9 tiles: partial sums
+    (10, 64, 4096, 256, 256, 4), (10, 32, 16384, 256, 256, 4),  # celeba 64², 128²
+    (10, 256, 256, 128, 32, 8), (16, 48, 1024, 128, 128, 8),    # C > 128, K > 12: staging
+    (10, 1000, 64, 3, 32, 2),                                   # above 64 KB: 32 pixels
 ])
-def test_render_assemble_backward_tile_fits_shared_memory(k, c, hw, tile):
-    """The backward kernel's pixels per block: a power of two from 32 to
-    256, within the 64 KB budget where 32 pixels fit it, else 32 pixels
-    within the 227 KB a block may opt in to."""
+def test_render_assemble_backward_tile_fits_shared_memory(k, c, hw, b, tile, rows):
+    """The backward kernel's pixels per tile and rows of partial sums. The
+    register-tiled kernel (K <= 12, C <= 128): tiles of 256 pixels (64 up
+    to 128 pixels, 128 up to 512), one cluster per image up to 8 tiles (no
+    scratch), else
+    min(tiles, 1024 // B) blocks of partials. The staging kernel: a power
+    of two from 32 to 256 within the 64 KB budget where 32 pixels fit it,
+    else 32 pixels within the 227 KB a block may opt in to."""
     assert backward_tile(k, c, hw) == tile
-    assert backward_smem(k, c, tile) <= (SMEM_BUDGET if c < 1000 else SMEM_OPT_IN)
+    assert backward_partial_rows(k, c, hw, b, tile) == rows
+    assert -(-hw // tile) <= MAX_CLUSTER or rows
+    if k > TILED_PARTS or c > TILED_CHANNELS:
+        assert backward_smem(k, c, tile) <= (SMEM_BUDGET if c < 1000 else SMEM_OPT_IN)
     render_assemble(*(torch.zeros(s) for s in ((1, k, 2), (1, k, 2, 2), (1, k, c))), 4, 5)
 
 

@@ -45,9 +45,11 @@ Then the kernels line, nvidia-smi's line, and the final status line.
 
 With --baseline DIR (DIR holds another checkout of the repo, such as a
 `git archive` of an earlier commit unpacked into a gitignored directory)
-it runs only device, build and turns: both checkouts' csrc/ built into two
-libraries, and each kernel's C entry point of both called on the same
-inputs, device time per call in the order baseline, this, this, baseline.
+it runs only device, build, kernels_warp and turns: both checkouts' csrc/
+built into two libraries; tps_warp's output held bit for bit to the
+baseline's (and to the plain version as above); and each kernel's C entry
+point of both called on the same inputs, device time per call in the
+order baseline, this, this, baseline.
 
 Imports nothing of JAX: it needs only this checkout, PyTorch and nvcc.
 """
@@ -68,7 +70,13 @@ from pathlib import Path
 import torch
 import torch.nn.functional as F
 
-from partseg_tpu_torch.augment import ColorParams, PairDraws, TPSParams, sample_pair_draws
+from partseg_tpu_torch.augment import (
+    ColorParams,
+    PairDraws,
+    TPSParams,
+    TPSSampler,
+    sample_pair_draws,
+)
 from partseg_tpu_torch.bench import build_trainer
 from partseg_tpu_torch.configs import model_config, train_config
 from partseg_tpu_torch.evals import make_infer_fn, transfer_batch
@@ -89,7 +97,7 @@ from partseg_tpu_torch.partops.kernels import (
     tps_warp_plain,
 )
 from partseg_tpu_torch.partops.kernels.bilinear_sample import sample_with_grads
-from partseg_tpu_torch.partops.kernels.tps_warp import band_config
+from partseg_tpu_torch.partops.kernels.tps_warp import band_config, tps_flow
 from partseg_tpu_torch.partops.moments import precision_from_cov
 from partseg_tpu_torch.train import build_perceptual, create_state, make_loss_fn, make_train_period
 from partseg_tpu_torch.train.state import trainable, warmup_cosine
@@ -251,6 +259,15 @@ def tps_warp_bound(b, h, w, c, m, elt):
     return bytes_, flops
 
 
+def tps_warp_backward_bound(b, h, w, c, m, elt):
+    """Read the image, its cotangent, the weights and the basis once; write
+    d_image and d_weights. The flow (4M), the tap slopes (14C + 12), d_coords
+    (4C) and d_weights (4M) per pixel."""
+    bytes_ = 3 * elt * b * h * w * c + 2 * 4 * b * m * 2 + 4 * h * w * m
+    flops = b * h * w * (8 * m + 18 * c + 12)
+    return bytes_, flops
+
+
 def bilinear_bound(b, n, c, elt, hw, grads=False):
     """The primal writes [B, N, C] in the image dtype; the grads variant
     writes three f32 arrays [B, C, N] (the sample and its y and x slopes)
@@ -365,6 +382,20 @@ def warp_inputs(gen, dtype=torch.float32):
     return img, weights, basis, coords
 
 
+TPS_LIBRARY_PAIR = ("tps_flow (f32 einsum) and F.grid_sample (border) on the flow cast to the "
+                    "image dtype: two library calls and a cast, no single call computes tps_warp")
+
+
+def tps_library_pair(img, weights, basis):
+    """tps_warp's yardstick: the flow by tps_flow, then F.grid_sample on it.
+    The weights are flipped once beforehand, so the flow comes out as the
+    (x, y) pairs grid_sample takes."""
+    nchw = img.permute(0, 3, 1, 2)
+    w_xy = weights.flip(-1).contiguous()
+    return lambda: F.grid_sample(nchw, tps_flow(w_xy, basis)[:, None].to(img.dtype),
+                                 mode="bilinear", padding_mode="border", align_corners=False)
+
+
 def _with_band(kh: int):
     """Set $PARTSEG_WARP_BAND (0 clears it); returns the old value."""
     old = os.environ.pop("PARTSEG_WARP_BAND", None)
@@ -373,7 +404,31 @@ def _with_band(kh: int):
     return old
 
 
-def phase_warp_kernels() -> dict:
+def _tps_launch(lib, im, weights, basis, band, tile) -> torch.Tensor:
+    """One call of a library's tps_warp entry point (this checkout's or a
+    baseline's) on the same inputs."""
+    out = torch.empty_like(im)
+    b, h, w, c = im.shape
+    _build.launch("partseg_tps_warp", im.device, im.data_ptr(), int(im.dtype == torch.bfloat16),
+                  weights.data_ptr(), basis.data_ptr(), out.data_ptr(), b, h, w, c,
+                  weights.shape[1], tile, band, lib=lib)
+    return out
+
+
+def _odd_warp_inputs(gen):
+    """Shapes off the main path for the bit-for-bit comparison: a batch
+    that is not a multiple of the image group, 17×13 pixels, M = 12 with
+    C = 4, and an image that starts at an odd element offset."""
+    cases = []
+    for b, h, w, c, grid in ((13, 17, 13, 3, 5), (9, 40, 48, 4, 3)):
+        sampler = TPSSampler(grid_size=grid)
+        img = torch.rand((b + 1, h, w, c), generator=gen, device="cuda")   # sliced [1:] below
+        cases.append((img, sampler.sample(gen, b).weights.contiguous(),
+                      sampler.flow_basis(h, w, "cuda")))
+    return cases
+
+
+def phase_warp_kernels(baseline=None) -> dict:
     """tps_warp (unbanded, and banded at kh = 56 and a tight 40) and
     bilinear_sample (primal and grads variant; border and zeros) against
     their plain versions at the training shapes. Tolerances: f32 tps_warp
@@ -381,11 +436,15 @@ def phase_warp_kernels() -> dict:
     move the taps, and neighbouring pixels differ by up to 1); bf16 against
     the plain version computed in f32 from the same bf16 image and cast
     once: one bf16 ulp at values ≤ 1 (2⁻⁸) plus 1e-4; f32 bilinear_sample
-    1e-6 (the same taps and weights, lerp products maybe fused)."""
+    1e-6 (the same taps and weights, lerp products maybe fused). tps_warp's
+    repeats must give the same bits, and with a ``baseline`` library (an
+    earlier checkout's kernels) so must its output: the same flow chain,
+    index rounding, taps and lerp."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
     img, weights, basis, coords = warp_inputs(gen)
     report, errs = [], {"tps_warp": 0.0, "bilinear_sample": 0.0}
     old = os.environ.get("PARTSEG_WARP_BAND")
+    odd = _odd_warp_inputs(gen) if baseline is not None else []
     try:
         for kh in (0, 56, 40):
             _with_band(kh)
@@ -393,21 +452,44 @@ def phase_warp_kernels() -> dict:
                 im = img.to(dtype)
                 band, tile = band_config(dtype, im.shape[1], im.shape[2])
                 got = tps_warp(im, weights, basis)
+                again = tps_warp(im, weights, basis)
                 want = tps_warp_plain(im.float(), weights, basis, band, tile).to(dtype)
                 torch.cuda.synchronize()
                 e = max_err(got, want)
                 tol = 1e-4 if dtype == torch.float32 else 2 ** -8 + 1e-4
-                report.append({"kernel": "tps_warp", "band": band, "tile": tile,
-                               "dtype": str(dtype), "max_abs": e})
+                row = {"kernel": "tps_warp", "band": band, "tile": tile, "dtype": str(dtype),
+                       "max_abs": e}
                 check(band == kh, f"tps_warp band {band}, expected {kh}")
                 check(got.dtype == dtype and e <= tol,
                       f"tps_warp kh={kh} {dtype}: {e} > {tol}")
+                check(torch.equal(got, again), f"tps_warp kh={kh} {dtype}: repeat differs")
+                if baseline is not None:
+                    prior = _tps_launch(baseline, im, weights, basis, band, tile)
+                    torch.cuda.synchronize()
+                    row["baseline_max_abs"] = max_err(got, prior)
+                    check(torch.equal(got, prior),
+                          f"tps_warp kh={kh} {dtype}: differs from the baseline's kernel")
+                report.append(row)
                 if dtype == torch.float32:
                     errs["tps_warp"] = max(errs["tps_warp"], e)
+        _with_band(0)
+        for im, w_, bs in odd:
+            for dtype in (torch.float32, torch.bfloat16):
+                x = im.to(dtype)[1:]
+                got, prior = (_tps_launch(lib, x, w_, bs, 0, 0) for lib in (_build.library(),
+                                                                           baseline))
+                torch.cuda.synchronize()
+                report.append({"kernel": "tps_warp", "shape": list(x.shape), "dtype": str(dtype),
+                               "m": w_.shape[1], "baseline_max_abs": max_err(got, prior)})
+                check(torch.equal(got, prior),
+                      f"tps_warp {list(x.shape)} {dtype}: differs from the baseline's kernel")
     finally:
         _with_band(0)
         if old is not None:
             os.environ["PARTSEG_WARP_BAND"] = old
+    if baseline is not None:
+        emit("kernels_warp", cases=report, compared="bit for bit with the baseline's tps_warp")
+        return errs
     # Coordinates beyond the border too, for the clamp and the zeros fade.
     wide = (coords * 1.15).contiguous()
     for dtype in (torch.float32, torch.bfloat16):
@@ -882,6 +964,17 @@ def phase_timing(cfg, served: dict, trained: dict, zeros_launches: dict, errs: d
     m = weights.shape[1]
     tw = _timed(lambda: tps_warp(img, weights, basis), lambda: tps_warp_plain(img, weights, basis),
                 tps_warp_bound(nw, s, s, 3, m, 2))
+    prior = _with_band(56)
+    kh, tile = band_config(img.dtype, s, s)
+    tw["band_kh56"] = _timed(lambda: tps_warp(img, weights, basis),
+                             lambda: tps_warp_plain(img, weights, basis, kh, tile),
+                             tps_warp_bound(nw, s, s, 3, m, 2))
+    _with_band(0)
+    if prior is not None:
+        os.environ["PARTSEG_WARP_BAND"] = prior
+    pair = tps_library_pair(img, weights, basis)
+    tw.update(library_pair=TPS_LIBRARY_PAIR, library_pair_ms=event_ms(pair, inner=KERNEL_INNER),
+              library_pair_device_ms=device_ms(pair))
     bs = _timed(lambda: bilinear_sample_fused(img, coords),
                 lambda: bilinear_sample_plain(img, coords), bilinear_bound(nw, s * s, 3, 2, s * s))
     bs["grads_device_ms"] = device_ms(lambda: sample_with_grads(img, coords))
@@ -905,6 +998,11 @@ def phase_timing(cfg, served: dict, trained: dict, zeros_launches: dict, errs: d
             outs, xs, cots = _graph(f, inputs, SEED + 13)
             bwd.setdefault(name, {})[label] = event_ms(
                 lambda: torch.autograd.grad(outs, xs, cots, retain_graph=True), runs=10)
+            if label == "ms":
+                bwd[name]["device_ms"] = device_ms(
+                    lambda: torch.autograd.grad(outs, xs, cots, retain_graph=True))
+    bwd["tps_warp"]["bound_ms"], bwd["tps_warp"]["bound_by"] = bound_ms(
+        *tps_warp_backward_bound(nw, s, s, 3, m, 4))
     emit("timing_backward", batch=TRAIN_BATCH, backward=bwd, nvidia_smi=smi)
 
     model, x_s, x_a = served["model"], served["x_s"], served["x_a"]
@@ -964,8 +1062,10 @@ def phase_timing(cfg, served: dict, trained: dict, zeros_launches: dict, errs: d
          "replaces": "partseg_tpu/partops/pallas/bilinear_warp.py:392",
          "launches": train["tps_warp"], "path": "speed128 train period",
          "max_abs_err": errs["tps_warp"], **tw, "library_ms": None, "library_device_ms": None,
-         "backward_ms": bwd["tps_warp"]["ms"],
-         "per": f"one call, image [{nw},{s},{s},3] bf16 (band mode: the same kernel)"},
+         "backward_ms": bwd["tps_warp"]["ms"], "backward_device_ms": bwd["tps_warp"]["device_ms"],
+         "backward_bound_ms": bwd["tps_warp"]["bound_ms"],
+         "per": f"one call, image [{nw},{s},{s},3] bf16; band_kh56: the band mode at kh = 56; "
+                f"backward_*: f32 inputs"},
         {"name": "bilinear_sample", "route": "cuda",
          "source": "partseg_tpu_torch/csrc/bilinear_sample.cu",
          "replaces": "partseg_tpu/partops/pallas/bilinear_warp.py:259",
@@ -1103,7 +1203,7 @@ def phase_turns(cfg, baseline: Path, smi: str) -> None:
     warped = torch.empty_like(img)
     tps = tps_warp_bound(nw, s, s, 3, m, 2)
     prior = os.environ.get("PARTSEG_WARP_BAND")
-    for kh in (0, 56):
+    for kh in (0, 56, 40):
         _with_band(kh)
         band, tile = band_config(img.dtype, s, s)
         check(band == kh, f"tps_warp band {band}, expected {kh}")
@@ -1114,6 +1214,11 @@ def phase_turns(cfg, baseline: Path, smi: str) -> None:
     _with_band(0)
     if prior is not None:
         os.environ["PARTSEG_WARP_BAND"] = prior
+    pair = tps_library_pair(img, weights, basis)
+    pair_bound, pair_by = bound_ms(*tps)
+    emit("turns", case="tps_warp training (library pair)", library_pair=TPS_LIBRARY_PAIR,
+         device_ms=[device_ms(pair), device_ms(pair)], bound_ms=pair_bound, bound_by=pair_by,
+         nvidia_smi=smi)
     n = coords.shape[1]
     out = torch.empty((nw, n, 3), device=dev, dtype=img.dtype)
     outs = [torch.empty((nw, n, 3), device=dev) for _ in range(3)]
@@ -1145,6 +1250,7 @@ def main() -> int:
     phase_build()
     cfg = model_config("celeba", use_pallas=True)
     if args.baseline is not None:
+        phase_warp_kernels(_build.library(args.baseline / "partseg_tpu_torch" / "csrc"))
         phase_turns(cfg, args.baseline, smi)
         print(smi, flush=True)
         return 0

@@ -44,6 +44,7 @@ SIGNATURES = {
     "partseg_render_assemble": ([_P] * 3 + [_I, _P] + [_I] * 6 + [_P], _I),
     "partseg_render_assemble_bwd": ([_P] * 4 + [_I] + [_P] * 4 + [_I] * 7 + [_P], _I),
     "partseg_tps_warp": ([_P, _I, _P, _P, _P] + [_I] * 7 + [_P], _I),
+    "partseg_tps_warp_plan": ([_I] * 6 + [_P], None),
     "partseg_bilinear_sample": ([_P, _I, _P, _P, _P, _P] + [_I] * 6 + [_P], _I),
 }
 

@@ -20,11 +20,18 @@ and per tile the row taps clamp into a kh-row band starting at
 ``(clip(min floor(fy), 0, H − kh) // 8) · 8``. It applies only where the
 TPU kernel applied it (0 < kh < H and tile % W == 0); elsewhere the
 warp is unbanded.
+
+``launch_plan`` is the kernel's launch rule (``make_plan`` in the CUDA
+source, which the card tests hold it to): a CTA owns a run of points and a
+group of images, and in band mode a tile's CTAs form a thread block
+cluster.
 """
 
 from __future__ import annotations
 
+import functools
 import os
+from typing import NamedTuple
 
 import torch
 
@@ -35,8 +42,13 @@ from partseg_tpu_torch.partops.kernels.bilinear_sample import (
 )
 from partseg_tpu_torch.partops.warp import axis_taps, gather_lerp, gather_sample, pixel_index
 
-MAX_BATCH = 65535                 # gridDim.y
-SMEM_LIMIT = 48 * 1024            # the kernel's [M, 2] f32 weights in shared memory
+MAX_BATCH = 65535                 # gridDim.y at one image per CTA
+# The kernel's CTA per mode (csrc/tps_warp.cu, Shape), keyed by band mode:
+# (threads, subgroups, images at most). A subgroup's threads take one point
+# each and group / subgroups images.
+SHAPES = {False: (256, 2, 8), True: (256, 1, 4)}
+MAX_CLUSTER = 8                   # CTAs per band tile, at most (the portable cluster)
+SMEM_OPT_IN = 232448              # the shared memory a block may opt in to on the H100
 
 
 def _round_up(x: int, m: int) -> int:
@@ -64,6 +76,54 @@ def band_config(dtype: torch.dtype, h: int, w: int) -> tuple[int, int]:
     return (kh, tile) if banded else (0, tile)
 
 
+class Plan(NamedTuple):
+    points: int     # points a CTA owns
+    group: int      # images a CTA samples
+    cluster: int    # CTAs per band tile (1: unbanded)
+    grid_x: int
+    grid_y: int
+    smem: int       # dynamic shared memory, bytes
+
+
+def _row_stride(m: int) -> int:
+    """The kernel's shared-memory row stride for M basis values: M rounded
+    up to a multiple of 4 that is 4 mod 8 (16-byte rows on distinct banks)."""
+    mp = _round_up(m, 4)
+    return mp + 4 if mp % 8 == 0 else mp
+
+
+def _smem_words(m: int, points: int, group: int, banded: bool) -> int:
+    """w [G, MP, 2] and one chunk of basis rows [run, MP] (MP = _row_stride(M),
+    G the mode's most images); the pixel indices [group, points] as float2;
+    the per-warp minima [warps, G / subgroups]; the CTA's minima and band
+    starts [2, G]."""
+    threads, split, most = SHAPES[banded]
+    mp = _row_stride(m)
+    return (2 * most * mp + threads // split * mp + 2 * group * points
+            + threads // 32 * (most // split) + 2 * most)
+
+
+@functools.lru_cache(maxsize=64)
+def launch_plan(b: int, h: int, w: int, m: int, kh: int = 0, tile: int = 0) -> Plan:
+    """The launch of ``csrc/tps_warp.cu`` for these sizes. Unbanded: runs of
+    128 points, 8 images per CTA. Band mode: a tile spread over a cluster of
+    min(MAX_CLUSTER, ⌈tile / 256⌉) CTAs, 4 images per CTA. The images per
+    CTA halve while the shared memory exceeds the opt-in limit."""
+    banded = kh > 0
+    threads, split, group = SHAPES[banded]
+    run, n = threads // split, h * w
+    if banded:
+        cluster = min(MAX_CLUSTER, -(-tile // run))
+        points = -(-tile // cluster)
+        grid_x = n // tile * cluster
+    else:
+        cluster, points, grid_x = 1, run, -(-n // run)
+    while group > 1 and 4 * _smem_words(m, points, group, banded) > SMEM_OPT_IN:
+        group //= 2
+    return Plan(points, group, cluster, grid_x, -(-b // group),
+                4 * _smem_words(m, points, group, banded))
+
+
 def tps_flow(weights: torch.Tensor, basis: torch.Tensor) -> torch.Tensor:
     """basis [N, M] · weights [B, M, 2] → coords [B, N, 2], f32."""
     return torch.einsum("nm,bmk->bnk", basis.float(), weights.float())
@@ -87,7 +147,8 @@ def tps_warp_plain(image: torch.Tensor, weights: torch.Tensor, basis: torch.Tens
     return out.reshape(b, h, w, c)
 
 
-def _check(image, weights, basis) -> None:
+def _check(image, weights, basis) -> tuple[int, int]:
+    """Raise on what the kernel does not take; else the call's (kh, tile)."""
     if image.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"tps_warp takes a float32 or bfloat16 image, got {image.dtype}")
     if weights.dtype != torch.float32 or basis.dtype != torch.float32:
@@ -109,8 +170,14 @@ def _check(image, weights, basis) -> None:
         raise ValueError(f"tps_warp runs on CPU or CUDA, got {image.device}")
     if b > MAX_BATCH:
         raise ValueError(f"tps_warp takes at most {MAX_BATCH} images, got {b}")
-    if 2 * weights.shape[1] * 4 > SMEM_LIMIT:
-        raise ValueError(f"tps_warp: M = {weights.shape[1]} exceeds the kernel's shared memory")
+    if h * w * image.shape[3] >= 2 ** 31:
+        raise ValueError("tps_warp takes images of fewer than 2³¹ elements each")
+    kh, tile = band_config(image.dtype, h, w)
+    plan = launch_plan(b, h, w, weights.shape[1], kh, tile)
+    if plan.smem > SMEM_OPT_IN:
+        raise ValueError(f"tps_warp: M = {weights.shape[1]} with {plan.points}-point runs "
+                         f"needs {plan.smem} bytes of shared memory, above {SMEM_OPT_IN}")
+    return kh, tile
 
 
 def _launch(image, weights, basis, kh: int, tile: int) -> torch.Tensor:
@@ -126,8 +193,7 @@ def _launch(image, weights, basis, kh: int, tile: int) -> torch.Tensor:
 class _TPSWarp(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, image, weights, basis):
-        kh, tile = band_config(image.dtype, image.shape[1], image.shape[2])
+    def forward(ctx, image, weights, basis, kh, tile):
         if image.device.type == "cpu":
             out = tps_warp_plain(image, weights, basis, kh, tile)
         else:
@@ -146,7 +212,7 @@ class _TPSWarp(torch.autograd.Function):
             tuple(image.shape), image.dtype, coords, d_fy, d_fx, g.reshape(b, h * w, c),
             need_image, need_weights)
         d_weights = torch.einsum("nm,bnk->bmk", basis, d_coords) if need_weights else None
-        return d_image, d_weights, None
+        return d_image, d_weights, None, None, None
 
 
 def tps_warp(image: torch.Tensor, weights: torch.Tensor, basis: torch.Tensor) -> torch.Tensor:
@@ -154,8 +220,8 @@ def tps_warp(image: torch.Tensor, weights: torch.Tensor, basis: torch.Tensor) ->
     [B, M, 2] f32 over the static pixel basis [H·W, M] f32
     (``TPSSampler.flow_basis``) → [B, H, W, C] in the image dtype.
     Differentiable in the image and the weights."""
-    _check(image, weights, basis)
-    return _TPSWarp.apply(image, weights, basis)
+    kh, tile = _check(image, weights, basis)
+    return _TPSWarp.apply(image, weights, basis, kh, tile)
 
 
 tps_warp.launches = 0

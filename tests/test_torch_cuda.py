@@ -21,11 +21,12 @@ to the neighbouring bf16 value: one ulp, at most 2⁻⁷ of it); whole-model out
 training metrics 1e-4 of their scale (tens of f32 layers).
 """
 
+import ctypes
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
-
-import dataclasses
 
 from partseg_tpu_torch.augment import TPSSampler
 from partseg_tpu_torch.evals import make_infer_fn, transfer_batch
@@ -48,7 +49,9 @@ from partseg_tpu_torch.partops.kernels.render_assemble import (
     render_assemble_backward,
     render_assemble_vjp,
 )
-from partseg_tpu_torch.partops.kernels.tps_warp import band_config
+from partseg_tpu_torch.partops.kernels import _build
+from partseg_tpu_torch.partops.kernels.tps_warp import band_config, launch_plan, tps_flow
+from partseg_tpu_torch.partops.warp import gather_sample
 from partseg_tpu_torch.partops.moments import precision_from_cov
 from partseg_tpu_torch.train import (
     LossConfig,
@@ -342,6 +345,99 @@ def test_tps_warp_kernel_matches_plain(cuda, monkeypatch, band, dtype):
     assert tps_warp.launches == before + 1 and got.dtype == dtype
     tol = 1e-4 if dtype == torch.float32 else 2 ** -8 + 1e-4   # one bf16 ulp below 1
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+
+
+# (b, h, w, c, tps_grid, band, tile (0: the default), extreme weights, NaN weights,
+#  slice at an odd offset)
+TPS_SHAPES = {
+    "training": (32, 128, 128, 3, 5, 0, 0, False, False, False),
+    "one_image": (1, 40, 48, 3, 5, 0, 0, False, False, False),
+    "b13": (13, 40, 48, 3, 5, 0, 0, False, False, False),      # not a multiple of the group
+    "hw_40x48": (3, 40, 48, 3, 5, 0, 0, False, False, False),  # H·W not a multiple of the run
+    "hw_17x13": (5, 17, 13, 3, 5, 0, 0, False, False, False),
+    "m12": (9, 40, 48, 3, 3, 0, 0, False, False, False),       # tps_grid = 3
+    "m52": (5, 40, 48, 3, 7, 0, 0, False, False, False),       # M > 32: w in blocks of 32
+    "c1": (9, 40, 48, 1, 5, 0, 0, False, False, False),
+    "c4": (9, 40, 48, 4, 5, 0, 0, False, False, False),
+    "c5": (3, 17, 13, 5, 4, 0, 0, False, False, False),        # the any-C loop, M = 19
+    "odd_slice": (5, 17, 13, 3, 5, 0, 0, False, False, True),  # x[1:]: H·W·C = 663
+    "extreme_nan": (9, 40, 48, 3, 5, 0, 0, True, True, False),
+    "band24": (10, 128, 128, 3, 5, 24, 0, False, False, False),
+    "band40": (10, 128, 128, 3, 5, 40, 0, False, False, False),
+    "band56": (32, 128, 128, 3, 5, 56, 0, False, False, False),
+    "band_480": (10, 40, 48, 3, 5, 24, 480, False, False, False),      # 2 CTAs of 240 points
+    "band_long_run": (3, 256, 256, 3, 5, 56, 65536, False, False, False),  # 16 chunks, 2 images
+}
+
+
+def _set_band(monkeypatch, band, tile):
+    monkeypatch.setenv("PARTSEG_WARP_BAND", str(band))
+    if tile:
+        monkeypatch.setenv("PARTSEG_WARP_TILE", str(tile))
+    else:
+        monkeypatch.delenv("PARTSEG_WARP_TILE", raising=False)
+
+
+# Shifts of the flow (y, x) that put one axis or both beyond the border.
+EXTREME_SHIFTS = [(4.0, 0.0), (-4.0, 0.0), (0.0, 4.0), (0.0, -4.0), (4.0, -4.0), (-1e3, 1e3)]
+
+
+def _tps_case(cuda, dtype, b, h, w, c, grid, extreme, nan, odd_slice, seed=21):
+    sampler = TPSSampler(grid_size=grid)
+    gen = torch.Generator().manual_seed(seed)
+    img = torch.rand((b + odd_slice, h, w, c), generator=gen).to(cuda, dtype)[odd_slice:]
+    weights = sampler.sample(gen, b).weights
+    if extreme:                                      # the basis column of the constant 1
+        for i, shift in zip(range(1, b), EXTREME_SHIFTS):
+            weights[i, sampler.n_ctrl] += torch.tensor(shift)
+    if nan:
+        weights[0, 2, 1] = float("nan")              # image 0: every x NaN
+        weights[b - 1] = float("nan")                # the last image: all NaN
+    return img, weights.to(cuda).contiguous(), sampler.flow_basis(h, w, cuda)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(TPS_SHAPES))
+def test_tps_warp_kernel_shapes(cuda, monkeypatch, case, dtype):
+    """The kernel at the training shape, a batch of 1 and one that is not a
+    multiple of the image group, runs that do not divide H·W, M = 12, 19 and 52,
+    C = 1, 3, 4 and 5, an image at an odd element offset, extreme and NaN
+    weights that put the flow beyond the border, and band mode at 128² (tiles split over a cluster of CTAs),
+    against the plain version; repeats give the same bits. A NaN flow
+    coordinate clamps like one far below -1 (the plain version's floor of
+    NaN has no defined tap)."""
+    b, h, w, c, grid, band, tile, extreme, nan, odd = TPS_SHAPES[case]
+    _set_band(monkeypatch, band, tile)
+    im, weights, basis = _tps_case(cuda, dtype, b, h, w, c, grid, extreme, nan, odd)
+    assert im.is_contiguous() and (im.data_ptr() % 16 != 0) == odd
+    kh, tile = band_config(dtype, h, w)
+    assert kh == band
+    before = tps_warp.launches
+    got = tps_warp(im, weights, basis)
+    again = tps_warp(im, weights, basis)
+    if nan:
+        want = gather_sample(im.float(), torch.nan_to_num(tps_flow(weights, basis), nan=-3.0))
+        want = want.reshape(got.shape).to(dtype)
+    else:
+        want = tps_warp_plain(im.float(), weights, basis, kh, tile).to(dtype)
+    torch.cuda.synchronize()
+    assert tps_warp.launches == before + 2 and got.dtype == dtype
+    assert torch.equal(got, again)
+    tol = 1e-4 if dtype == torch.float32 else 2 ** -8 + 1e-4   # one bf16 ulp below 1
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("case", list(TPS_SHAPES))
+def test_tps_warp_launch_plan_matches_the_kernel(cuda, monkeypatch, case):
+    """partops/kernels/tps_warp.py:launch_plan is the CUDA source's make_plan."""
+    b, h, w, _, grid, band, tile, *_ = TPS_SHAPES[case]
+    m = grid * grid + 3
+    _set_band(monkeypatch, band, tile)
+    for dtype in (torch.float32, torch.bfloat16):
+        kh, tile_ = band_config(dtype, h, w)
+        got = (ctypes.c_int * 6)()
+        _build.library().partseg_tps_warp_plan(b, h, w, m, tile_, kh, got)
+        assert tuple(got) == tuple(launch_plan(b, h, w, m, kh, tile_))
 
 
 @pytest.mark.parametrize("mode", ["border", "zeros"])

@@ -31,7 +31,11 @@ from partseg_tpu_torch.partops.kernels import (
     _build,
     render_assemble,
     softmax_moments,
+    tps_warp,
 )
+from partseg_tpu_torch.partops.kernels.tps_warp import MAX_CLUSTER as TPS_MAX_CLUSTER
+from partseg_tpu_torch.partops.kernels.tps_warp import SMEM_OPT_IN as TPS_SMEM_OPT_IN
+from partseg_tpu_torch.partops.kernels.tps_warp import launch_plan
 from partseg_tpu_torch.partops.kernels.render_assemble import (
     MAX_CLUSTER,
     SMEM_BUDGET,
@@ -226,6 +230,43 @@ def test_render_assemble_backward_tile_fits_shared_memory(k, c, hw, b, tile, row
     if k > TILED_PARTS or c > TILED_CHANNELS:
         assert backward_smem(k, c, tile) <= (SMEM_BUDGET if c < 1000 else SMEM_OPT_IN)
     render_assemble(*(torch.zeros(s) for s in ((1, k, 2), (1, k, 2, 2), (1, k, c))), 4, 5)
+
+
+@pytest.mark.parametrize("b,h,w,m,kh,tile,plan", [
+    (32, 128, 128, 28, 0, 4096, (128, 8, 1, 128, 4, 24512)),    # speed128's warp head
+    (32, 128, 128, 28, 56, 4096, (512, 4, 8, 32, 8, 46112)),    # band, bf16 tiles
+    (32, 128, 128, 28, 56, 2048, (256, 4, 8, 64, 8, 37920)),    # band, f32 tiles
+    (13, 40, 48, 28, 0, 0, (128, 8, 1, 15, 2, 24512)),          # a ragged run and group
+    (5, 17, 13, 19, 0, 0, (128, 8, 1, 2, 1, 19904)),            # M = 19: rows of 20
+    (10, 40, 48, 28, 24, 480, (240, 4, 2, 8, 3, 37408)),        # two CTAs to a tile
+    (2, 256, 256, 28, 56, 65536, (8192, 2, 8, 8, 1, 160800)),   # a long run: 2 images
+    (65535, 8, 8, 12, 0, 0, (128, 8, 1, 1, 8192, 15296)),       # the largest batch
+    (1, 8, 8, 396, 0, 0, (128, 4, 1, 1, 1, 232384)),            # M = 396: four images
+])
+def test_tps_warp_launch_plan_fits_the_card(b, h, w, m, kh, tile, plan):
+    """The kernel's launch: runs of 128 points and groups of up to 8 images
+    (band mode: a tile over a cluster of up to 8 CTAs in chunks of 256
+    points, 4 images), the images halved while the shared memory exceeds the
+    opt-in limit; the grid covers every point and image within the card's
+    limits."""
+    got = launch_plan(b, h, w, m, kh, tile)
+    assert tuple(got) == plan
+    assert got.smem <= TPS_SMEM_OPT_IN and got.cluster <= TPS_MAX_CLUSTER
+    assert got.grid_y <= 65535 and got.grid_y * got.group >= b
+    assert got.grid_x % got.cluster == 0
+    if kh:
+        assert got.points * got.cluster >= tile and got.grid_x // got.cluster * tile == h * w
+    else:
+        assert got.grid_x * got.points >= h * w
+
+
+def test_tps_warp_rejects_a_basis_beyond_shared_memory():
+    """M = 400 leaves no room for a chunk of basis rows even at one image
+    per CTA; M = 396 fits (above)."""
+    img = torch.zeros((1, 8, 8, 3))
+    with pytest.raises(ValueError, match="shared memory"):
+        tps_warp(img, torch.zeros((1, 400, 2)), torch.zeros((64, 400)))
+    assert tps_warp(img, torch.zeros((1, 396, 2)), torch.zeros((64, 396))).shape == img.shape
 
 
 def test_kernel_modules_import_and_run_on_cpu_without_building():

@@ -1,11 +1,11 @@
 """Paired augmentation: TPS warps, colour jitter and the pair driver."""
 
-from partseg_tpu_torch.augment.color import ColorParams, color_jitter, sample_color_params
+from partseg_tpu_torch.augment.color import ColorParams, color_jitter
 from partseg_tpu_torch.augment.pair import (
     AugmentConfig,
     PairDraws,
+    keyed_pair_draws,
     make_pair,
-    sample_pair_draws,
 )
 from partseg_tpu_torch.augment.tps import TPSParams, TPSSampler
 
@@ -16,7 +16,6 @@ __all__ = [
     "TPSParams",
     "TPSSampler",
     "color_jitter",
+    "keyed_pair_draws",
     "make_pair",
-    "sample_color_params",
-    "sample_pair_draws",
 ]

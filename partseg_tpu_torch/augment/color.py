@@ -35,21 +35,17 @@ class ColorParams:
     hue: torch.Tensor         # [...]: rotation angle (radians)
 
 
-def sample_color_params(gen: torch.Generator, batch: tuple[int, ...] | int,
-                        brightness: float = 0.1, contrast: float = 0.3,
+def color_from_uniforms(u: torch.Tensor, brightness: float = 0.1, contrast: float = 0.3,
                         saturation: float = 0.3, hue: float = 0.3) -> ColorParams:
-    """Per-sample jitter parameters, uniform in the given ranges, from
-    ``gen`` on its device."""
-    shape = (batch,) if isinstance(batch, int) else tuple(batch)
-
-    def uniform(lo, hi):
-        return torch.rand(shape, generator=gen, device=gen.device) * (hi - lo) + lo
+    """The jitter parameters of uniforms u [..., 4] in [0, 1)."""
+    def scaled(i, lo, hi):
+        return u[..., i] * (hi - lo) + lo
 
     return ColorParams(
-        brightness=uniform(-brightness, brightness),
-        contrast=uniform(1.0 - contrast, 1.0 + contrast),
-        saturation=uniform(1.0 - saturation, 1.0 + saturation),
-        hue=uniform(-hue, hue),
+        brightness=scaled(0, -brightness, brightness),
+        contrast=scaled(1, 1.0 - contrast, 1.0 + contrast),
+        saturation=scaled(2, 1.0 - saturation, 1.0 + saturation),
+        hue=scaled(3, -hue, hue),
     )
 
 

@@ -6,11 +6,11 @@ of draws, the two coupled views
 
 plus the TPS transform itself, which the equivariance loss needs.
 
-Sampling is split from application: ``sample_pair_draws`` makes the
-draws from a ``torch.Generator``, ``make_pair`` applies given draws (the
-tests inject the JAX package's). The JAX package also keys draws per
-sample (``aug_id``) so that data parallelism cannot change them; that
-matters only once the port runs data parallel, and comes with it.
+Sampling is split from application: ``keyed_pair_draws`` makes the
+draws of each sample from (seed, step, aug_id), as the JAX package keys
+them per sample so that the split of a batch cannot change them;
+``make_pair`` applies given draws (the parity tests inject the JAX
+package's).
 """
 
 from __future__ import annotations
@@ -19,9 +19,15 @@ import dataclasses
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
-from partseg_tpu_torch.augment.color import ColorParams, color_jitter, sample_color_params
+from partseg_tpu_torch.augment import keys
+from partseg_tpu_torch.augment.color import (
+    ColorParams,
+    color_from_uniforms,
+    color_jitter,
+)
 from partseg_tpu_torch.augment.tps import TPSParams, TPSSampler
 
 
@@ -66,12 +72,28 @@ class PairDraws(NamedTuple):
     tps2: TPSParams | None = None     # the appearance view's warp, if any
 
 
-def sample_pair_draws(gen: torch.Generator, b: int, sampler: TPSSampler,
-                      cfg: AugmentConfig) -> PairDraws:
-    """Draw the TPS warps and colour jitter of a batch of b images."""
-    tps = sampler.sample(gen, b)
-    col = sample_color_params(gen, b, cfg.brightness, cfg.contrast, cfg.saturation, cfg.hue)
-    tps2 = sampler.sample(gen, b) if cfg.warp_appearance_view else None
+def keyed_pair_draws(seed: int, step: int, aug_id, sampler: TPSSampler, cfg: AugmentConfig,
+                     device: torch.device | str = "cpu") -> PairDraws:
+    """The draws of samples ``aug_id`` [B] (host integers: numpy or a CPU
+    tensor) at ``step``, on ``device``. Each sample's draws are one counter
+    range of its key: the jitter's 4 uniforms, then the warp's normals and,
+    with ``warp_appearance_view``, the appearance view's. They are hashed
+    on the host (augment/keys.py) and sent to the device in one copy."""
+    if torch.is_tensor(aug_id):
+        aug_id = aug_id.cpu().numpy()
+    n = sampler.n_normals
+    per_warp = n + n % 2                # Box-Muller makes normals in pairs
+    warps = 2 if cfg.warp_appearance_view else 1
+    u = keys.uniforms(keys.sample_keys(seed, step, aug_id), 4 + warps * per_warp)
+    z = np.concatenate(
+        [u[:, :4]] + [keys.box_muller(u[:, 4 + i * per_warp:4 + (i + 1) * per_warp])[:, :n]
+                      for i in range(warps)], axis=1).astype(np.float32)
+    z = torch.from_numpy(z)
+    if torch.device(device).type == "cuda":
+        z = z.pin_memory().to(device, non_blocking=True)
+    col = color_from_uniforms(z[:, :4], cfg.brightness, cfg.contrast, cfg.saturation, cfg.hue)
+    tps = sampler.from_normals(z[:, 4:4 + n])
+    tps2 = sampler.from_normals(z[:, 4 + n:]) if warps == 2 else None
     return PairDraws(tps, col, tps2)
 
 

@@ -86,25 +86,31 @@ class TPSSampler:
 
     # ---------------------------------------------------------------- sampling
 
+    @property
+    def n_normals(self) -> int:
+        """Standard normals per warp: log-scale, rotation, translation (2)
+        and the control-point displacements (2 per point)."""
+        return 4 + 2 * self.n_ctrl
+
     def sample(self, gen: torch.Generator, batch: tuple[int, ...] | int) -> TPSParams:
         """Sample a batch of warps from ``gen`` on its device."""
         shape = (batch,) if isinstance(batch, int) else tuple(batch)
-        dev = gen.device
+        return self.from_normals(
+            torch.randn(shape + (self.n_normals,), generator=gen, device=gen.device))
+
+    def from_normals(self, z: torch.Tensor) -> TPSParams:
+        """The warps of standard normals z [..., n_normals]."""
         n = self.n_ctrl
-
-        def normal(*s):
-            return torch.randn(shape + s, generator=gen, device=dev)
-
-        log_s = normal() * self.scale_sd
-        theta = normal() * self.rot_sd
-        trans = normal(2) * self.trans_sd
-        delta = normal(n, 2) * self.ctrl_sd
+        log_s = z[..., 0] * self.scale_sd
+        theta = z[..., 1] * self.rot_sd
+        trans = z[..., 2:4] * self.trans_sd
+        delta = z[..., 4:].reshape(z.shape[:-1] + (n, 2)) * self.ctrl_sd
         s = torch.exp(log_s)
         cos, sin = torch.cos(theta), torch.sin(theta)
         # Rotation acting on (y, x): [[cos, -sin], [sin, cos]].
         rot = torch.stack([torch.stack([cos, -sin], -1), torch.stack([sin, cos], -1)], -2)
         sim = s[..., None, None] * rot
-        tgt = (torch.einsum("...ij,nj->...ni", sim, self._const("ctrl", dev))
+        tgt = (torch.einsum("...ij,nj->...ni", sim, self._const("ctrl", z.device))
                + trans[..., None, :] + delta)                               # [..., n, 2]
         return self._solve(tgt)
 

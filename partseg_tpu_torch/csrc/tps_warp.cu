@@ -33,6 +33,11 @@
 //      pairs of FMA chains, w comes as shared-memory broadcasts. Per image
 //      the chain is the plain dot's f32 FMA order over j = 0..M−1, and the
 //      pixel indices (to_pixel's per-operation rounding) go to shared memory.
+//      Where M is too wide for the rows to fit whole (M > 396 unbanded, M >
+//      212 in band mode at 4096-point tiles), they are staged in chunks of
+//      columns small enough for four CTAs to an SM (84 columns unbanded,
+//      36 in band mode), w's with them, and each chain runs on across the
+//      chunks, so the output does not depend on the chunking either.
 //   2. Band mode: the tile's minimum tap row per image meets through a block
 //      reduction and, where a tile spans a thread block cluster of up to 8
 //      CTAs (so that the 4096-point tiles fill the card), through distributed
@@ -63,6 +68,7 @@ namespace {
 constexpr int kMaxCluster = 8;       // the portable cluster size
 constexpr int kDefaultSmem = 48 * 1024;
 constexpr int kSmemOptIn = 232448;   // what a block may opt in to on the H100
+constexpr int kSmemPerSM = 233472;   // an H100 SM's shared memory; 1 KB of it is kept per CTA
 
 // The CTA of each mode: kThreads threads in kSplit subgroups of kRun; a
 // chunk is kRun points, and subgroup s runs the flow of, and samples,
@@ -88,6 +94,7 @@ struct Plan {
   int cluster;  // CTAs per band tile (1: unbanded)
   int grid_x, grid_y;
   int smem;     // dynamic shared memory, bytes
+  int chunk;    // basis columns staged at a time (M: the whole basis in one chunk)
 };
 
 // The shared-memory row stride of the basis and of w: M rounded up to a
@@ -99,13 +106,12 @@ __host__ __device__ int row_stride(int m) {
 }
 
 // Dynamic shared memory, in 4-byte words: w [kGroup, MP, 2] and one chunk
-// of basis rows [kRun, MP] (MP = row_stride(M), zero beyond M); the pixel
-// indices [group, points] as float2; the per-warp minima [kWarps, kImgs],
-// the CTA's minima and the band starts [2, kGroup].
+// of basis rows [kRun, MP] (MP = row_stride(chunk), zero beyond the chunk);
+// the pixel indices [group, points] as float2; the per-warp minima [kWarps,
+// kImgs], the CTA's minima and the band starts [2, kGroup].
 template <bool kBanded>
-__host__ __device__ int smem_words(int m, int points, int group) {
+__host__ __device__ int smem_words(int mp, int points, int group) {
   using S = Shape<kBanded>;
-  const int mp = row_stride(m);
   return 2 * S::kGroup * mp + S::kRun * mp + 2 * group * points + S::kWarps * S::kImgs +
          2 * S::kGroup;
 }
@@ -124,11 +130,27 @@ __host__ Plan plan_of(int b, int h, int w, int m, int tile) {
     p.points = S::kRun;
     p.grid_x = (n + S::kRun - 1) / S::kRun;
   }
+  p.chunk = m;
   p.group = S::kGroup;   // fewer images where a long run's indices would not fit
-  while (p.group > 1 && 4 * smem_words<kBanded>(m, p.points, p.group) > kSmemOptIn)
+  while (p.group > 1 && 4 * smem_words<kBanded>(row_stride(m), p.points, p.group) > kSmemOptIn)
     p.group /= 2;
+  if (4 * smem_words<kBanded>(row_stride(m), p.points, p.group) > kSmemOptIn) {
+    // The basis does not fit whole: stage it in chunks of columns, each as
+    // wide as the largest stride (4 mod 8 words) that fits beside the
+    // pixel indices of the most images that leave room for one, within
+    // the share of an SM that lets kMinBlocks CTAs run on it together
+    // where that leaves room, else within the opt-in limit.
+    int budget = kSmemPerSM / S::kMinBlocks - 1024;
+    p.group = S::kGroup;
+    if (4 * smem_words<kBanded>(4, p.points, p.group) > budget) budget = kSmemOptIn;
+    while (p.group > 1 && 4 * smem_words<kBanded>(4, p.points, p.group) > budget)
+      p.group /= 2;
+    const int mp = (budget / 4 - smem_words<kBanded>(0, p.points, p.group)) /
+                   (2 * S::kGroup + S::kRun);
+    p.chunk = mp >= 4 ? (mp - 4) / 8 * 8 + 4 : 4;
+  }
   p.grid_y = (b + p.group - 1) / p.group;
-  p.smem = 4 * smem_words<kBanded>(m, p.points, p.group);
+  p.smem = 4 * smem_words<kBanded>(row_stride(p.chunk), p.points, p.group);
   return p;
 }
 
@@ -141,18 +163,27 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
 }
 
-// Copies `rows` basis rows of m floats from src into dst at row stride mp,
-// zero beyond m. Where the rows are already float4 rows at that stride
-// (m == mp, src 16-byte aligned) the block goes over with 16-byte cp.async,
-// which the caller waits for (cp_async_wait); elsewhere one float at a time.
+// One float, or a zero where `valid` is false (src is then not read).
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 4 : 0) : "memory");
+}
+
+// Copies the first `width` floats of `rows` basis rows (src_stride apart)
+// from src into dst at row stride mp, zero beyond width, with cp.async,
+// which the caller waits for (cp_async_wait). Where the rows are already
+// float4 rows at that stride (width == src_stride == mp, src 16-byte
+// aligned) the block goes over in 16-byte copies; elsewhere one float at a
+// time.
 __device__ __forceinline__ void stage_rows(float* dst, const float* __restrict__ src, int rows,
-                                           int m, int mp) {
-  if (m == mp && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-    for (int i = threadIdx.x; i < rows * m / 4; i += blockDim.x) cp_async16(dst + 4 * i, src + 4 * i);
+                                           int width, int src_stride, int mp) {
+  if (width == mp && src_stride == mp && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    for (int i = threadIdx.x; i < rows * mp / 4; i += blockDim.x) cp_async16(dst + 4 * i, src + 4 * i);
   } else {
     for (int i = threadIdx.x; i < rows * mp; i += blockDim.x) {
       const int r = i / mp, j = i - r * mp;
-      dst[i] = j < m ? src[(size_t)r * m + j] : 0.0f;
+      cp_async4(dst + i, src + (size_t)r * src_stride + min(j, width - 1), j < width);
     }
   }
 }
@@ -226,10 +257,10 @@ template <typename T, int kC, bool kBanded>
 __global__ void __launch_bounds__(Shape<kBanded>::kThreads, Shape<kBanded>::kMinBlocks)
 tps_warp_kernel(const T* __restrict__ img, const float* __restrict__ weights,
                 const float* __restrict__ basis, T* __restrict__ out, int b, int h, int w,
-                int c_rt, int m, int tile, int kh, int points, int group) {
+                int c_rt, int m, int tile, int kh, int points, int group, int chunk) {
   using S = Shape<kBanded>;
   constexpr int kImgs = S::kImgs, kRun = S::kRun;
-  const int mp = row_stride(m);
+  const int mp = row_stride(chunk);
   extern __shared__ float4 smem4[];
   float4* w_s = smem4;                                    // [kGroup, mp / 2]: j pairs (y, x, y, x)
   float4* b_s = w_s + S::kGroup * mp / 2;                 // [kRun, mp / 4]
@@ -262,27 +293,32 @@ tps_warp_kernel(const T* __restrict__ img, const float* __restrict__ weights,
   for (int i = 0; i < kImgs; ++i) mn[i] = INT_MAX;
   for (int c0 = 0; c0 < count; c0 += kRun) {
     const int cnt = min(kRun, count - c0);
-    if (c0 > 0) __syncthreads();   // the previous chunk's rows are read
-    stage_rows(reinterpret_cast<float*>(b_s), basis + (size_t)(n0 + c0) * m, cnt, m, mp);
-    if (c0 == 0) {   // w, while the first chunk's copies are in flight; zero beyond M and the group
-      for (int i = t; i < 2 * S::kGroup * mp; i += S::kThreads) {
-        const int g = i / (2 * mp), j2 = i - g * 2 * mp;
-        reinterpret_cast<float*>(w_s)[i] =
-            g < ng && j2 < 2 * m ? weights[(size_t)(b0 + g) * 2 * m + j2] : 0.0f;
+    float cy[kImgs], cx[kImgs];
+#pragma unroll
+    for (int i = 0; i < kImgs; ++i) cy[i] = cx[i] = 0.0f;
+    // The basis columns in chunks (one chunk unless M is too wide for
+    // shared memory); the flows' FMA chains run on across chunks in j order.
+    for (int j0 = 0; j0 < m; j0 += chunk) {
+      const int jc = min(chunk, m - j0);
+      if (c0 > 0 || j0 > 0) __syncthreads();   // the previous chunk's rows are read
+      stage_rows(reinterpret_cast<float*>(b_s), basis + (size_t)(n0 + c0) * m + j0, cnt, jc, m,
+                 mp);
+      if (c0 == 0 || chunk < m) {   // w, while the copies are in flight; zero beyond the chunk
+        for (int i = t; i < 2 * S::kGroup * mp; i += S::kThreads) {
+          const int g = i / (2 * mp), j2 = i - g * 2 * mp;
+          reinterpret_cast<float*>(w_s)[i] =
+              g < ng && j2 < 2 * jc ? weights[(size_t)(b0 + g) * 2 * m + 2 * j0 + j2] : 0.0f;
+        }
       }
-    }
-    cp_async_wait();
-    __syncthreads();
-    if (lane < cnt) {
+      cp_async_wait();
+      __syncthreads();
+      if (lane >= cnt) continue;
       // Four j at a time: one 16-byte load of the point's basis values and
-      // two broadcast loads of w per image. Beyond M both are zero, and
-      // fmaf(0, 0, a) leaves a (up to the sign of a zero, which to_pixel's
-      // c + 1 erases).
+      // two broadcast loads of w per image. Beyond the chunk both are zero,
+      // and fmaf(0, 0, a) leaves a (up to the sign of a zero, which
+      // to_pixel's c + 1 erases).
       const float4* row = b_s + lane * (mp / 4);
       const float4* wg = w_s + g_first * (mp / 2);
-      float cy[kImgs], cx[kImgs];
-#pragma unroll
-      for (int i = 0; i < kImgs; ++i) cy[i] = cx[i] = 0.0f;
       for (int q = 0; q < mp / 4; ++q) {
         const float4 phi = row[q];
 #pragma unroll
@@ -298,6 +334,8 @@ tps_warp_kernel(const T* __restrict__ img, const float* __restrict__ weights,
           cx[i] = fmaf(phi.w, w23.w, cx[i]);
         }
       }
+    }
+    if (lane < cnt) {
 #pragma unroll
       for (int i = 0; i < kImgs; ++i) {
         if (g_first + i < ng) {
@@ -411,7 +449,7 @@ cudaError_t launch_mode(const T* img, const float* weights, const float* basis, 
   cfg.attrs = attr;
   cfg.numAttrs = kBanded ? 1 : 0;
   return cudaLaunchKernelEx(&cfg, kernel, img, weights, basis, out, b, h, w, c, m, tile, kh,
-                            p.points, p.group);
+                            p.points, p.group, p.chunk);
 }
 
 template <typename T, int kC>
@@ -443,8 +481,8 @@ cudaError_t launch_any(const void* img_, const float* weights, const float* basi
 // basis: [H·W, M] f32; out: [B, H, W, C] in the image dtype. kh = 0: unbanded;
 // kh > 0: band mode with `tile`-point tiles (the caller checks 0 < kh < H,
 // tile % W == 0 and H·W % tile == 0). The caller keeps B <= 65535, H·W·C <
-// 2³¹ and the plan's shared memory within the opt-in limit
-// (partseg_tps_warp_plan). Launches on `stream`, allocates nothing, does not
+// 2³¹ and the plan's shared memory (partseg_tps_warp_plan) within the opt-in
+// limit: any M fits, a tile's pixel indices alone may not. Launches on `stream`, allocates nothing, does not
 // synchronise. Returns the first CUDA error.
 extern "C" int partseg_tps_warp(const void* img, int img_is_bf16, const float* weights,
                                 const float* basis, void* out, int b, int h, int w, int c,
@@ -459,10 +497,10 @@ extern "C" int partseg_tps_warp(const void* img, int img_is_bf16, const float* w
   return static_cast<int>(err);
 }
 
-// The launch partseg_tps_warp makes for these arguments, as six ints:
-// points, group, cluster, grid_x, grid_y, smem bytes.
+// The launch partseg_tps_warp makes for these arguments, as seven ints:
+// points, group, cluster, grid_x, grid_y, smem bytes, basis chunk.
 extern "C" void partseg_tps_warp_plan(int b, int h, int w, int m, int tile, int kh, int* plan) {
   const Plan p = make_plan(b, h, w, m, tile, kh);
-  const int v[6] = {p.points, p.group, p.cluster, p.grid_x, p.grid_y, p.smem};
-  for (int i = 0; i < 6; ++i) plan[i] = v[i];
+  const int v[7] = {p.points, p.group, p.cluster, p.grid_x, p.grid_y, p.smem, p.chunk};
+  for (int i = 0; i < 7; ++i) plan[i] = v[i];
 }

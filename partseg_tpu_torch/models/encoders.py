@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from partseg_tpu_torch.models.blocks import ConvBlock, Conv2d, ResBlock, upsample2x
 from partseg_tpu_torch.models.hourglass import Hourglass
@@ -21,6 +22,15 @@ def to_nchw(x: torch.Tensor) -> torch.Tensor:
 def to_nhwc(x: torch.Tensor) -> torch.Tensor:
     """NCHW → contiguous NHWC (free for channels_last storage)."""
     return x.permute(0, 2, 3, 1).contiguous()
+
+
+def run_hourglass(hg: nn.Module, x: torch.Tensor, remat: bool) -> torch.Tensor:
+    """``hg(x)``; with ``remat`` in training, under activation checkpointing
+    (the JAX package's ``nn.remat(Hourglass)``): its activations are not
+    kept but recomputed in the backward."""
+    if remat and hg.training and torch.is_grad_enabled():
+        return checkpoint(hg, x, use_reentrant=False)
+    return hg(x)
 
 
 class _Stem(nn.Module):
@@ -51,8 +61,10 @@ class ShapeEncoder(nn.Module):
     def __init__(self, n_parts: int = 10, background: bool = True, depth: int = 4,
                  features: int = 128, n_stacks: int = 1, norm: str = "block",
                  stem_stride: int = 2, head_upsample: bool = False,
-                 act_quant: str = "none", dtype: torch.dtype = torch.bfloat16):
+                 act_quant: str = "none", remat: bool = False,
+                 dtype: torch.dtype = torch.bfloat16):
         super().__init__()
+        self.remat = remat
         self.stem = _Stem(features, dtype, norm, stem_stride, act_quant)
         self.hourglasses = nn.ModuleList(
             Hourglass(depth, features, norm, act_quant, dtype) for _ in range(n_stacks)
@@ -66,7 +78,7 @@ class ShapeEncoder(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.stem(x)
         for hg in self.hourglasses:
-            x = hg(x)
+            x = run_hourglass(hg, x, self.remat)
         if self.head_upsample:
             x = upsample2x(x)
         return to_nhwc(self.head(self.head_block(x)))
@@ -77,8 +89,10 @@ class AppearanceEncoder(nn.Module):
 
     def __init__(self, out_features: int = 128, depth: int = 4, features: int = 128,
                  norm: str = "block", stem_stride: int = 2, head_upsample: bool = False,
-                 act_quant: str = "none", dtype: torch.dtype = torch.bfloat16):
+                 act_quant: str = "none", remat: bool = False,
+                 dtype: torch.dtype = torch.bfloat16):
         super().__init__()
+        self.remat = remat
         self.stem = _Stem(features, dtype, norm, stem_stride, act_quant)
         self.hourglass = Hourglass(depth, features, norm, act_quant, dtype)
         self.head_upsample = head_upsample
@@ -86,7 +100,7 @@ class AppearanceEncoder(nn.Module):
         self.head = Conv2d(features, out_features, 1, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.hourglass(self.stem(x))
+        x = run_hourglass(self.hourglass, self.stem(x), self.remat)
         if self.head_upsample:
             x = upsample2x(x)
         return to_nhwc(self.head(self.head_block(x)))

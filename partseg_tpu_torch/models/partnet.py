@@ -52,7 +52,7 @@ class PartNetConfig:
     # Kept for parity with the JAX config. Both JAX settings compute the
     # same function; the port always goes through its kernel wrappers.
     use_pallas: bool = False
-    remat: bool = False              # training-memory knob; no effect on serving
+    remat: bool = False              # recompute the hourglasses in the backward (training memory)
     norm: str = "block"              # ResBlock norm: "block" | "group" | "none"
     act_quant: str = "none"          # "none" | "f8" ResBlock output rounding
     dtype: Any = torch.bfloat16
@@ -90,12 +90,12 @@ class PartNet(nn.Module):
             n_parts=c.n_parts, background=c.background, depth=c.depth,
             features=c.features, n_stacks=c.n_stacks, norm=c.norm,
             stem_stride=c.stem_stride, head_upsample=c.head_upsample,
-            act_quant=c.act_quant, dtype=c.dtype,
+            act_quant=c.act_quant, remat=c.remat, dtype=c.dtype,
         )
         self.app_enc = AppearanceEncoder(
             out_features=c.app_features, depth=c.depth, features=c.features,
             norm=c.norm, stem_stride=c.stem_stride, head_upsample=c.head_upsample,
-            act_quant=c.act_quant, dtype=c.dtype,
+            act_quant=c.act_quant, remat=c.remat, dtype=c.dtype,
         )
         self.decoder = Decoder(
             app_features=c.app_features, out_size=c.decoder_out_size or c.img_size,

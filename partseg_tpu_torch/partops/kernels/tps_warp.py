@@ -24,7 +24,12 @@ warp is unbanded.
 ``launch_plan`` is the kernel's launch rule (``make_plan`` in the CUDA
 source, which the card tests hold it to): a CTA owns a run of points and a
 group of images, and in band mode a tile's CTAs form a thread block
-cluster.
+cluster. A basis too wide for shared memory is staged in chunks of
+columns, so any M runs, as on the TPU. The one shape the kernel refuses is
+a band tile whose pixel indices alone overflow shared memory (a
+``$PARTSEG_WARP_TILE`` above about 228000 points); the TPU kernel would
+hold such a tile's [tile, M] basis block in VMEM, which has no room for it
+either.
 """
 
 from __future__ import annotations
@@ -49,6 +54,8 @@ MAX_BATCH = 65535                 # gridDim.y at one image per CTA
 SHAPES = {False: (256, 2, 8), True: (256, 1, 4)}
 MAX_CLUSTER = 8                   # CTAs per band tile, at most (the portable cluster)
 SMEM_OPT_IN = 232448              # the shared memory a block may opt in to on the H100
+SMEM_PER_SM = 233472              # an H100 SM's shared memory; 1 KB of it is kept per CTA
+MIN_BLOCKS = 4                    # CTAs an SM must hold (the kernel's __launch_bounds__)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -83,6 +90,7 @@ class Plan(NamedTuple):
     grid_x: int
     grid_y: int
     smem: int       # dynamic shared memory, bytes
+    chunk: int      # basis columns staged at a time (M: the whole basis at once)
 
 
 def _row_stride(m: int) -> int:
@@ -92,13 +100,12 @@ def _row_stride(m: int) -> int:
     return mp + 4 if mp % 8 == 0 else mp
 
 
-def _smem_words(m: int, points: int, group: int, banded: bool) -> int:
-    """w [G, MP, 2] and one chunk of basis rows [run, MP] (MP = _row_stride(M),
-    G the mode's most images); the pixel indices [group, points] as float2;
-    the per-warp minima [warps, G / subgroups]; the CTA's minima and band
-    starts [2, G]."""
+def _smem_words(mp: int, points: int, group: int, banded: bool) -> int:
+    """w [G, MP, 2] and one chunk of basis rows [run, MP] (MP the row stride
+    of a chunk, G the mode's most images); the pixel indices [group, points]
+    as float2; the per-warp minima [warps, G / subgroups]; the CTA's minima
+    and band starts [2, G]."""
     threads, split, most = SHAPES[banded]
-    mp = _row_stride(m)
     return (2 * most * mp + threads // split * mp + 2 * group * points
             + threads // 32 * (most // split) + 2 * most)
 
@@ -108,9 +115,14 @@ def launch_plan(b: int, h: int, w: int, m: int, kh: int = 0, tile: int = 0) -> P
     """The launch of ``csrc/tps_warp.cu`` for these sizes. Unbanded: runs of
     128 points, 8 images per CTA. Band mode: a tile spread over a cluster of
     min(MAX_CLUSTER, ⌈tile / 256⌉) CTAs, 4 images per CTA. The images per
-    CTA halve while the shared memory exceeds the opt-in limit."""
+    CTA halve while the shared memory exceeds the opt-in limit. Where the
+    basis rows do not fit whole even at one image, they are staged in chunks
+    of columns: the widest chunk (4 mod 8 words) that fits beside the pixel
+    indices of the most images that leave room for one, within the share of
+    an SM that lets MIN_BLOCKS CTAs run on it together where that leaves
+    room, else within the opt-in limit."""
     banded = kh > 0
-    threads, split, group = SHAPES[banded]
+    threads, split, most = SHAPES[banded]
     run, n = threads // split, h * w
     if banded:
         cluster = min(MAX_CLUSTER, -(-tile // run))
@@ -118,10 +130,23 @@ def launch_plan(b: int, h: int, w: int, m: int, kh: int = 0, tile: int = 0) -> P
         grid_x = n // tile * cluster
     else:
         cluster, points, grid_x = 1, run, -(-n // run)
-    while group > 1 and 4 * _smem_words(m, points, group, banded) > SMEM_OPT_IN:
+
+    def fits(mp: int, group: int) -> bool:
+        return 4 * _smem_words(mp, points, group, banded) <= SMEM_OPT_IN
+
+    chunk, group = m, most
+    while group > 1 and not fits(_row_stride(m), group):
         group //= 2
+    if not fits(_row_stride(m), group):
+        budget, group = SMEM_PER_SM // MIN_BLOCKS - 1024, most
+        if 4 * _smem_words(4, points, group, banded) > budget:
+            budget = SMEM_OPT_IN
+        while group > 1 and 4 * _smem_words(4, points, group, banded) > budget:
+            group //= 2
+        mp = (budget // 4 - _smem_words(0, points, group, banded)) // (2 * most + run)
+        chunk = (mp - 4) // 8 * 8 + 4 if mp >= 4 else 4
     return Plan(points, group, cluster, grid_x, -(-b // group),
-                4 * _smem_words(m, points, group, banded))
+                4 * _smem_words(_row_stride(chunk), points, group, banded), chunk)
 
 
 def tps_flow(weights: torch.Tensor, basis: torch.Tensor) -> torch.Tensor:
@@ -129,11 +154,32 @@ def tps_flow(weights: torch.Tensor, basis: torch.Tensor) -> torch.Tensor:
     return torch.einsum("nm,bmk->bnk", basis.float(), weights.float())
 
 
+def kernel_order_flow(weights: torch.Tensor, basis: torch.Tensor):
+    """The flow as the kernel sums it, the reference at wide bases (where
+    two f32 orders of the dot differ by more than a sample's tolerance):
+    per image and coordinate, fmaf over j = 0..M−1 in order from 0, each
+    step an exact f64 product and sum rounded to f32 (an f32 FMA up to a
+    double rounding, one ulp in about 2²⁹ steps). Returns the flow
+    [B, N, 2] f32 and Σ_j |partial sum_j| [B, N, 2] f64."""
+    b64, w64 = basis.double(), weights.double()
+    acc = torch.zeros((weights.shape[0], basis.shape[0], 2), device=basis.device)
+    path = torch.zeros_like(acc, dtype=torch.float64)
+    for j in range(basis.shape[1]):
+        acc = (acc.double() + b64[:, j][None, :, None] * w64[:, j][:, None, :]).float()
+        path += acc.double().abs()
+    return acc, path
+
+
 def tps_warp_plain(image: torch.Tensor, weights: torch.Tensor, basis: torch.Tensor,
                    kh: int = 0, tile: int = 0) -> torch.Tensor:
     """The plain PyTorch version: [B, H, W, C] in the image dtype."""
+    return tps_sample_plain(image, tps_flow(weights, basis), kh, tile)
+
+
+def tps_sample_plain(image: torch.Tensor, coords: torch.Tensor, kh: int = 0,
+                     tile: int = 0) -> torch.Tensor:
+    """The sample half of the plain version, at a given flow [B, H·W, 2]."""
     b, h, w, c = image.shape
-    coords = tps_flow(weights, basis)
     if not kh:
         return gather_sample(image, coords).reshape(b, h, w, c)
     fy, fx = pixel_index(coords, h, w)
@@ -175,8 +221,9 @@ def _check(image, weights, basis) -> tuple[int, int]:
     kh, tile = band_config(image.dtype, h, w)
     plan = launch_plan(b, h, w, weights.shape[1], kh, tile)
     if plan.smem > SMEM_OPT_IN:
-        raise ValueError(f"tps_warp: M = {weights.shape[1]} with {plan.points}-point runs "
-                         f"needs {plan.smem} bytes of shared memory, above {SMEM_OPT_IN}")
+        raise ValueError(f"tps_warp: the pixel indices of a {plan.points}-point run need "
+                         f"{plan.smem} bytes of shared memory, above {SMEM_OPT_IN}; "
+                         "lower $PARTSEG_WARP_TILE")
     return kh, tile
 
 

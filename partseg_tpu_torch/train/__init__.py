@@ -1,4 +1,5 @@
-"""Training: configs, the optimizer and state, and the train step."""
+"""Training: configs, the optimizer and state, the train step, and the loop
+(``loop.train``, ``cli``) with its checkpoints and metrics."""
 
 from partseg_tpu_torch.train.config import (
     LossConfig,
@@ -10,6 +11,7 @@ from partseg_tpu_torch.train.state import OptState, TrainState, create_state, ma
 from partseg_tpu_torch.train.step import (
     build_perceptual,
     compose_period,
+    compose_scan,
     make_loss_fn,
     make_train_period,
     make_train_step,
@@ -24,6 +26,7 @@ __all__ = [
     "apply_overrides",
     "build_perceptual",
     "compose_period",
+    "compose_scan",
     "create_state",
     "make_loss_fn",
     "make_optimizer",

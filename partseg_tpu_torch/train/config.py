@@ -1,15 +1,17 @@
 """Training configuration: the port's copies of the JAX package's
 ``LossConfig``, ``OptimConfig`` and ``TrainConfig``
-(partseg_tpu/train/config.py), with the same fields and defaults, and its
-dot-path ``KEY=VAL`` overrides. The fields of the train loop (data,
-logging, checkpoints, scan and echo) are kept for parity; the training
-step reads ``model``, ``augment``, ``loss``, ``optim`` and ``seed``.
+(partseg_tpu/train/config.py), with the same fields and defaults, its
+dot-path ``KEY=VAL`` overrides and ``load_config``. The training step reads
+``model``, ``augment``, ``loss``, ``optim`` and ``seed``; the loop
+(``train/loop.py``) the rest.
 """
 
 from __future__ import annotations
 
 import ast
 import dataclasses
+import importlib.util
+import pathlib
 from typing import Any
 
 from partseg_tpu_torch.augment.pair import AugmentConfig
@@ -76,6 +78,31 @@ class TrainConfig:
 
     def replace(self, **kw) -> "TrainConfig":
         return dataclasses.replace(self, **kw)
+
+
+def load_config(name_or_path: str) -> TrainConfig:
+    """A train preset by name (``"speed128"``), or ``get_config()`` of a
+    Python file that builds a port ``TrainConfig``. A path
+    ``configs/<name>.py`` names the port's preset ``<name>`` and is not
+    executed (those files build the JAX package's configs), so the JAX
+    CLI's ``--config configs/synthetic.py`` works unchanged."""
+    from partseg_tpu_torch.configs import TRAIN_PRESETS
+
+    if name_or_path in TRAIN_PRESETS:
+        return TRAIN_PRESETS[name_or_path]
+    p = pathlib.Path(name_or_path)
+    if p.suffix == ".py" and p.parent.name == "configs":
+        if p.stem not in TRAIN_PRESETS:
+            raise KeyError(f"{name_or_path}: no port preset {p.stem!r}; known: "
+                           f"{sorted(TRAIN_PRESETS)}")
+        return TRAIN_PRESETS[p.stem]
+    if p.suffix != ".py" or not p.is_file():
+        raise KeyError(f"unknown config {name_or_path!r}: neither a preset "
+                       f"({sorted(TRAIN_PRESETS)}) nor a Python file")
+    spec = importlib.util.spec_from_file_location(p.stem, p)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.get_config()
 
 
 def apply_overrides(cfg: Any, overrides) -> Any:

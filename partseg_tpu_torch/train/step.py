@@ -5,18 +5,20 @@ One step: paired augmentation (no gradient) → PartNet forward on
 losses → gradients → clip → Adam on a warmup-cosine schedule. PyTorch
 runs it eagerly; the state is updated in place.
 
-Draws come from one ``torch.Generator`` per (seed, step) on the images'
-device, unless the caller passes them (the tests pass the JAX package's).
+Each sample's draws are keyed by (seed, step, aug_id), as the JAX
+package folds ``aug_id`` into the step's key (``augment/keys.py``), unless
+the caller passes them (the parity tests pass the JAX package's).
 """
 
 from __future__ import annotations
 
 from typing import Callable
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from partseg_tpu_torch.augment.pair import PairDraws, make_pair, sample_pair_draws
+from partseg_tpu_torch.augment.pair import PairDraws, keyed_pair_draws, make_pair
 from partseg_tpu_torch.augment.tps import TPSSampler
 from partseg_tpu_torch.losses.equivariance import equivariance_loss
 from partseg_tpu_torch.device import default_device
@@ -37,13 +39,6 @@ def build_perceptual(cfg: TrainConfig, device=None) -> PerceptualLoss:
     mode = load_vgg19(vgg, lw.vgg_npz)
     return PerceptualLoss(vgg, lw.vgg_layer_weights, lw.pixel_weight, lw.vgg_resolution,
                           vgg_mode=mode).to(default_device(device))
-
-
-def step_generator(seed: int, step: int, device) -> torch.Generator:
-    """The generator of step ``step``'s draws: one per (seed, step)."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed((seed << 32) | (step & 0xFFFFFFFF))
-    return gen
 
 
 def make_loss_fn(cfg: TrainConfig, model: PartNet, sampler: TPSSampler,
@@ -93,7 +88,8 @@ def make_train_step(cfg: TrainConfig, model: PartNet, sampler: TPSSampler,
 
     warp_on is static, as in the JAX package: a warp_every > 1 schedule
     builds one step with the warp and one without (make_train_period).
-    Metrics are 0-dim tensors on the model's device."""
+    ``batch["aug_id"]`` [B] (host integers, default 0..B−1) are the
+    samples' global ids that key their draws. Metrics are 0-dim tensors on the model's device."""
     optimizer = make_optimizer(cfg.optim)
     loss_fn = make_loss_fn(cfg, model, sampler, perceptual, warp_on)
 
@@ -101,8 +97,11 @@ def make_train_step(cfg: TrainConfig, model: PartNet, sampler: TPSSampler,
                    draws: PairDraws | None = None):
         images = batch["image"]
         if draws is None:
-            gen = step_generator(seed, state.step, images.device)
-            draws = sample_pair_draws(gen, images.shape[0], sampler, cfg.augment)
+            aug_id = batch.get("aug_id")
+            if aug_id is None:
+                aug_id = np.arange(images.shape[0])
+            draws = keyed_pair_draws(seed, state.step, aug_id, sampler, cfg.augment,
+                                     images.device)
         loss, metrics = loss_fn(batch, draws)
         params = list(trainable(state.model).values())
         grads = torch.autograd.grad(loss, params, allow_unused=True)
@@ -141,6 +140,27 @@ def compose_period(subs: list) -> Callable:
         return state, metrics
 
     return period_step
+
+
+def compose_scan(body: Callable, scan_groups: int, data_echo: int = 1) -> Callable:
+    """Run ``body`` (a step or period) over ``scan_groups`` fetch groups
+    per call, each applied ``data_echo`` times in a row: the JAX package's
+    ``compose_scan`` (one ``lax.scan`` dispatch) as a host loop, the same
+    step sequence (each sub-step draws by its own step, which advances).
+    Takes a sequence of ``scan_groups`` batch arguments of ``body``.
+    Metrics: the mean over every step of the call."""
+
+    def scan_dispatch(state, groups, seed: int = 0):
+        if len(groups) != scan_groups:
+            raise ValueError(f"compose_scan takes {scan_groups} fetch groups, got {len(groups)}")
+        ms = []
+        for batches in groups:
+            for _ in range(data_echo):
+                state, m = body(state, batches, seed)
+                ms.append(m)
+        return state, {k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]}
+
+    return scan_dispatch
 
 
 def _seg_consistency(out) -> torch.Tensor:

@@ -1,8 +1,8 @@
 """Port parity: partseg_tpu_torch.augment (TPS sampler, colour jitter,
 paired augmentation) against the JAX package's, at float32 on the CPU.
 Evaluation and application take the same draws (made in JAX, passed as
-numpy); sampling is compared by its distribution only, since
-``torch.Generator`` cannot reproduce ``jax.random``.
+numpy); sampling is compared by its distribution only, since the
+port's keyed hash (augment/keys.py) cannot reproduce ``jax.random``.
 
 Tolerances: 1e-6 for tables computed by the same numpy code or the same
 f32 expression; 1e-5 for evaluations whose f32 sums run in another order
@@ -31,9 +31,8 @@ from partseg_tpu_torch.augment import (
     TPSParams,
     TPSSampler,
     color_jitter,
+    keyed_pair_draws,
     make_pair,
-    sample_color_params,
-    sample_pair_draws,
 )
 from _torch_parity import images, n, t
 
@@ -101,14 +100,6 @@ def test_color_jitter_matches_on_the_same_params():
     assert out.dtype == torch.bfloat16
 
 
-def test_sample_color_params_ranges():
-    p = sample_color_params(torch.Generator().manual_seed(5), 2000, 0.1, 0.3, 0.2, 0.4)
-    for v, lo, hi in ((p.brightness, -0.1, 0.1), (p.contrast, 0.7, 1.3),
-                      (p.saturation, 0.8, 1.2), (p.hue, -0.4, 0.4)):
-        assert v.shape == (2000,) and lo <= v.min().item() and v.max().item() <= hi
-        assert abs(v.mean().item() - (lo + hi) / 2) < 0.05 * (hi - lo)
-
-
 @pytest.mark.parametrize("warp_on", [True, False])
 def test_make_pair_matches_jax_on_the_same_draws(warp_on):
     jcfg = JAugment(tps_grid=3, warp_fraction=0.5)
@@ -136,7 +127,7 @@ def test_make_pair_options():
     cfg = AugmentConfig(tps_grid=3, warp_appearance_view=True)
     s = cfg.make_sampler()
     x = t(images(8, 2, 16))
-    draws = sample_pair_draws(torch.Generator().manual_seed(9), 2, s, cfg)
+    draws = keyed_pair_draws(9, 0, np.arange(2), s, cfg)
     assert draws.tps2 is not None
     out = make_pair(x, draws.tps, draws.color, s, cfg, tps2=draws.tps2)
     jittered = color_jitter(x, draws.color)
@@ -146,3 +137,53 @@ def test_make_pair_options():
     with pytest.raises(ValueError):
         make_pair(x, draws.tps, draws.color, s,
                   dataclasses.replace(cfg, warp_fraction=0.0, warp_appearance_view=False))
+
+
+def test_keyed_draws_match_the_jax_sampler_in_distribution():
+    """The training step's per-sample keyed draws (augment/keys.py) against
+    the JAX package's samplers at 4096 samples: per entry of the TPS
+    weights and per colour parameter, the means agree within 6 standard
+    errors and the standard deviations within 8%; the uniforms stay in
+    their ranges. torch cannot reproduce jax.random, so the draws agree in
+    distribution only."""
+    nb = 4096
+    cfg = AugmentConfig(tps_ctrl_sd=0.12, warp_appearance_view=True)
+    jsampler = JSampler(cfg.tps_grid, cfg.tps_scale_sd, cfg.tps_rot_sd, cfg.tps_trans_sd,
+                        cfg.tps_ctrl_sd)
+    got = keyed_pair_draws(3, 17, torch.arange(nb), cfg.make_sampler(), cfg)
+    k_tps, k_col = jax.random.split(jax.random.key(0))
+    want_tps = np.asarray(jsampler.sample(k_tps, nb).weights)
+    want_col = jax_sample_color(k_col, nb, cfg.brightness, cfg.contrast, cfg.saturation, cfg.hue)
+
+    def same_moments(a, b, name):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        se = np.sqrt((a.var(0) + b.var(0)) / nb)
+        assert (np.abs(a.mean(0) - b.mean(0)) <= 6 * se + 1e-7).all(), name
+        assert np.allclose(a.std(0), b.std(0), rtol=0.08, atol=1e-7), name
+
+    for tps in (got.tps, got.tps2):
+        same_moments(n(tps.weights), want_tps, "tps")
+    for field, lo, hi in (("brightness", -0.1, 0.1), ("contrast", 0.7, 1.3),
+                          ("saturation", 0.7, 1.3), ("hue", -0.3, 0.3)):
+        g = n(getattr(got.color, field))
+        same_moments(g, np.asarray(getattr(want_col, field)), field)
+        assert lo < g.min() and g.max() < hi, field
+
+
+def test_keyed_draws_are_per_sample():
+    """A batch's draws equal its two halves' fed with their aug_ids; they
+    follow the seed, the step and the id, and nothing else."""
+    cfg = AugmentConfig()
+    sampler = cfg.make_sampler()
+    ids = torch.arange(100, 108)
+    whole = keyed_pair_draws(0, 5, ids, sampler, cfg)
+    halves = [keyed_pair_draws(0, 5, ids[i:i + 4], sampler, cfg) for i in (0, 4)]
+    assert torch.equal(whole.tps.weights, torch.cat([h.tps.weights for h in halves]))
+    for f in dataclasses.fields(whole.color):
+        assert torch.equal(getattr(whole.color, f.name),
+                           torch.cat([getattr(h.color, f.name) for h in halves]))
+    again = keyed_pair_draws(0, 5, ids.flip(0), sampler, cfg)
+    assert torch.equal(again.tps.weights, whole.tps.weights.flip(0))
+    for other in (keyed_pair_draws(1, 5, ids, sampler, cfg), keyed_pair_draws(0, 6, ids, sampler, cfg),
+                  keyed_pair_draws(0, 5, ids + 8, sampler, cfg)):
+        assert not torch.isclose(other.tps.weights, whole.tps.weights).any()

@@ -50,7 +50,13 @@ from partseg_tpu_torch.partops.kernels.render_assemble import (
     render_assemble_vjp,
 )
 from partseg_tpu_torch.partops.kernels import _build
-from partseg_tpu_torch.partops.kernels.tps_warp import band_config, launch_plan, tps_flow
+from partseg_tpu_torch.partops.kernels.tps_warp import (
+    band_config,
+    kernel_order_flow,
+    launch_plan,
+    tps_flow,
+    tps_sample_plain,
+)
 from partseg_tpu_torch.partops.warp import gather_sample
 from partseg_tpu_torch.partops.moments import precision_from_cov
 from partseg_tpu_torch.train import (
@@ -61,7 +67,7 @@ from partseg_tpu_torch.train import (
     create_state,
     make_train_period,
 )
-from partseg_tpu_torch.augment import AugmentConfig, sample_pair_draws
+from partseg_tpu_torch.augment import AugmentConfig, keyed_pair_draws
 
 pytestmark = pytest.mark.cuda
 
@@ -367,7 +373,15 @@ TPS_SHAPES = {
     "band56": (32, 128, 128, 3, 5, 56, 0, False, False, False),
     "band_480": (10, 40, 48, 3, 5, 24, 480, False, False, False),      # 2 CTAs of 240 points
     "band_long_run": (3, 256, 256, 3, 5, 56, 65536, False, False, False),  # 16 chunks, 2 images
+    "grid20": (32, 128, 128, 3, 20, 0, 0, False, False, False),   # M = 403: 5 basis chunks
+    "band56_grid15": (32, 128, 128, 3, 15, 56, 0, False, False, False),  # M = 228: 7 chunks
 }
+# From grid 15 on, a TPS flow's dot sums thousands in magnitude to values
+# near 1 (Σ|basis_j·w_j| ≈ 2700 at grid 15, 8800 at grid 20), and two f32
+# orders of that sum differ by up to 0.006 px; so there the plain version
+# samples the flow computed in the kernel's order (kernel_order_flow), and
+# only the lerp's products may fuse.
+KERNEL_ORDER_FROM_GRID = 15
 
 
 def _set_band(monkeypatch, band, tile):
@@ -418,6 +432,9 @@ def test_tps_warp_kernel_shapes(cuda, monkeypatch, case, dtype):
     if nan:
         want = gather_sample(im.float(), torch.nan_to_num(tps_flow(weights, basis), nan=-3.0))
         want = want.reshape(got.shape).to(dtype)
+    elif grid >= KERNEL_ORDER_FROM_GRID:
+        flow, _ = kernel_order_flow(weights, basis)
+        want = tps_sample_plain(im.float(), flow, kh, tile).to(dtype)
     else:
         want = tps_warp_plain(im.float(), weights, basis, kh, tile).to(dtype)
     torch.cuda.synchronize()
@@ -435,9 +452,51 @@ def test_tps_warp_launch_plan_matches_the_kernel(cuda, monkeypatch, case):
     _set_band(monkeypatch, band, tile)
     for dtype in (torch.float32, torch.bfloat16):
         kh, tile_ = band_config(dtype, h, w)
-        got = (ctypes.c_int * 6)()
+        got = (ctypes.c_int * 7)()
         _build.library().partseg_tps_warp_plan(b, h, w, m, tile_, kh, got)
         assert tuple(got) == tuple(launch_plan(b, h, w, m, kh, tile_))
+
+
+@pytest.mark.parametrize("grid", [5, 20])
+def test_tps_warp_in_image_large_flow_accuracy(cuda, monkeypatch, grid):
+    """Large non-rigid flows that stay inside the image (control points
+    moved by N(0, 0.25) around a 0.6 scaling, clamped to ±0.95), f32,
+    against the sample at the exact flow (f64), under a bound derived from
+    the dot's rounding. The kernel's flow is a chain of M f32 FMAs, each
+    rounded once with relative error ≤ u = 2⁻²⁴ of its result ŝ_j, so the
+    computed flow is the exact one plus Σ_j δ_j with |δ_j| ≤ u·|ŝ_j|:
+    |error| ≤ u·Σ_j|ŝ_j| in coordinates, exactly (this is at most the usual
+    M·u·Σ_j|basis_j·w_j|, and far below it where the sum cancels). The
+    exact flow rounded to f32 and to_pixel's three roundings add at most
+    4u·(|c| + 1); a pixel index is (c + 1)·S/2 − 0.5. The border-clamped
+    bilinear sample is Lipschitz in each index with the image's largest
+    neighbour difference along that axis as the constant, and the lerp's
+    own roundings are below 1e-6 at values in [0, 1]. Grid 20 (M = 403)
+    crosses the kernel's chunk boundaries (every 84 columns)."""
+    _set_band(monkeypatch, 0, 0)
+    b, h, w = 8, 128, 128
+    sampler = TPSSampler(grid_size=grid)
+    gen = torch.Generator().manual_seed(5)
+    ctrl = torch.from_numpy(sampler._ctrl_np)
+    targets = (0.6 * ctrl + 0.25 * torch.randn((b, sampler.n_ctrl, 2), generator=gen))
+    weights = sampler._solve(targets.clamp(-0.95, 0.95)).weights.to(cuda).contiguous()
+    img = torch.rand((b, h, w, 3), generator=gen).to(cuda)
+    basis = sampler.flow_basis(h, w, cuda)
+    got = tps_warp(img, weights, basis)
+    exact = torch.einsum("nm,bmk->bnk", basis.double(), weights.double())
+    _, path = kernel_order_flow(weights, basis)
+    u = 2.0 ** -24
+    err_c = u * path + 4 * u * (exact.abs() + 1)                # [B, N, 2] in coordinates
+    lip_y = (img[:, 1:] - img[:, :-1]).abs().amax(dim=(1, 2, 3))  # per image
+    lip_x = (img[:, :, 1:] - img[:, :, :-1]).abs().amax(dim=(1, 2, 3))
+    bound = (err_c[..., 0] * h / 2 * lip_y[:, None] + err_c[..., 1] * w / 2 * lip_x[:, None]
+             + 1e-6)                                              # [B, N]
+    want = gather_sample(img, exact.float()).reshape(b, h * w, 3)
+    err = (got.reshape(b, h * w, 3) - want).abs().amax(-1)
+    inside = (exact.abs() <= 1).all(-1)
+    assert inside.float().mean() > 0.95                          # the flow stays in the image
+    assert (err <= bound).all(), (err / bound).max().item()
+    assert err.max() > 0 or grid == 5                            # grid 20 rounds visibly
 
 
 @pytest.mark.parametrize("mode", ["border", "zeros"])
@@ -475,8 +534,7 @@ def test_train_period_on_card_matches_cpu(cuda):
         optim=OptimConfig(warmup_steps=10, decay_steps=100))
     sampler = cfg.augment.make_sampler()
     xs = [torch.rand((4, 32, 32, 3), generator=torch.Generator().manual_seed(i)) for i in (6, 7)]
-    draws = [sample_pair_draws(torch.Generator().manual_seed(8 + i), 4, sampler, cfg.augment)
-             for i in range(2)]
+    draws = [keyed_pair_draws(8 + i, 0, np.arange(4), sampler, cfg.augment) for i in range(2)]
     cpu_model = init_weights(PartNet(cfg.model, device="cpu"), seed=0)
     out = {}
     for dev in ("cpu", cuda):

@@ -35,6 +35,7 @@ from partseg_tpu_torch.partops.kernels import (
 )
 from partseg_tpu_torch.partops.kernels.tps_warp import MAX_CLUSTER as TPS_MAX_CLUSTER
 from partseg_tpu_torch.partops.kernels.tps_warp import SMEM_OPT_IN as TPS_SMEM_OPT_IN
+from partseg_tpu_torch.partops.kernels.tps_warp import SMEM_PER_SM as TPS_SMEM_PER_SM
 from partseg_tpu_torch.partops.kernels.tps_warp import launch_plan
 from partseg_tpu_torch.partops.kernels.render_assemble import (
     MAX_CLUSTER,
@@ -233,40 +234,55 @@ def test_render_assemble_backward_tile_fits_shared_memory(k, c, hw, b, tile, row
 
 
 @pytest.mark.parametrize("b,h,w,m,kh,tile,plan", [
-    (32, 128, 128, 28, 0, 4096, (128, 8, 1, 128, 4, 24512)),    # speed128's warp head
-    (32, 128, 128, 28, 56, 4096, (512, 4, 8, 32, 8, 46112)),    # band, bf16 tiles
-    (32, 128, 128, 28, 56, 2048, (256, 4, 8, 64, 8, 37920)),    # band, f32 tiles
-    (13, 40, 48, 28, 0, 0, (128, 8, 1, 15, 2, 24512)),          # a ragged run and group
-    (5, 17, 13, 19, 0, 0, (128, 8, 1, 2, 1, 19904)),            # M = 19: rows of 20
-    (10, 40, 48, 28, 24, 480, (240, 4, 2, 8, 3, 37408)),        # two CTAs to a tile
-    (2, 256, 256, 28, 56, 65536, (8192, 2, 8, 8, 1, 160800)),   # a long run: 2 images
-    (65535, 8, 8, 12, 0, 0, (128, 8, 1, 1, 8192, 15296)),       # the largest batch
-    (1, 8, 8, 396, 0, 0, (128, 4, 1, 1, 1, 232384)),            # M = 396: four images
+    (32, 128, 128, 28, 0, 4096, (128, 8, 1, 128, 4, 24512, 28)),    # speed128's warp head
+    (32, 128, 128, 28, 56, 4096, (512, 4, 8, 32, 8, 46112, 28)),    # band, bf16 tiles
+    (32, 128, 128, 28, 56, 2048, (256, 4, 8, 64, 8, 37920, 28)),    # band, f32 tiles
+    (13, 40, 48, 28, 0, 0, (128, 8, 1, 15, 2, 24512, 28)),          # a ragged run and group
+    (5, 17, 13, 19, 0, 0, (128, 8, 1, 2, 1, 19904, 19)),            # M = 19: rows of 20
+    (10, 40, 48, 28, 24, 480, (240, 4, 2, 8, 3, 37408, 28)),        # two CTAs to a tile
+    (2, 256, 256, 28, 56, 65536, (8192, 2, 8, 8, 1, 160800, 28)),   # a long run: 2 images
+    (65535, 8, 8, 12, 0, 0, (128, 8, 1, 1, 8192, 15296, 12)),       # the largest batch
+    (1, 8, 8, 396, 0, 0, (128, 4, 1, 1, 1, 232384, 396)),           # M = 396: four images
+    (32, 128, 128, 403, 0, 4096, (128, 8, 1, 128, 4, 56768, 84)),   # grid 20: 5 chunks
+    (32, 128, 128, 228, 56, 4096, (512, 4, 8, 32, 8, 54560, 36)),   # grid 15, band: 7 chunks
+    (32, 128, 128, 212, 56, 4096, (512, 2, 8, 32, 16, 232224, 212)),  # band, M = 212: whole
+    (2, 256, 256, 403, 56, 65536, (8192, 2, 8, 8, 1, 228384, 92)),  # long run: opt-in budget
 ])
 def test_tps_warp_launch_plan_fits_the_card(b, h, w, m, kh, tile, plan):
     """The kernel's launch: runs of 128 points and groups of up to 8 images
     (band mode: a tile over a cluster of up to 8 CTAs in chunks of 256
     points, 4 images), the images halved while the shared memory exceeds the
-    opt-in limit; the grid covers every point and image within the card's
+    opt-in limit; where the basis rows do not fit whole even so, chunks of
+    columns 4 mod 8 wide at the most images that leave room for one, in a
+    quarter of an SM where that leaves room (four CTAs to an SM, as at
+    M = 28); the grid covers every point and image within the card's
     limits."""
     got = launch_plan(b, h, w, m, kh, tile)
     assert tuple(got) == plan
+    assert got.chunk == m or got.smem <= TPS_SMEM_PER_SM // 4 - 1024 or tile == 65536
     assert got.smem <= TPS_SMEM_OPT_IN and got.cluster <= TPS_MAX_CLUSTER
     assert got.grid_y <= 65535 and got.grid_y * got.group >= b
     assert got.grid_x % got.cluster == 0
+    assert got.chunk == m or (got.chunk < m and got.chunk % 8 == 4)
     if kh:
         assert got.points * got.cluster >= tile and got.grid_x // got.cluster * tile == h * w
     else:
         assert got.grid_x * got.points >= h * w
 
 
-def test_tps_warp_rejects_a_basis_beyond_shared_memory():
-    """M = 400 leaves no room for a chunk of basis rows even at one image
-    per CTA; M = 396 fits (above)."""
+def test_tps_warp_rejects_a_basis_beyond_shared_memory(monkeypatch):
+    """Any M runs: a basis too wide for shared memory is staged in chunks
+    (M = 400 and 6144, beyond PR 5's limit of 396, take the plain version
+    here). What is refused is a band tile whose pixel indices alone do not
+    fit: $PARTSEG_WARP_TILE = 2²⁰ points at 1024² is 2¹⁷ points per CTA."""
     img = torch.zeros((1, 8, 8, 3))
+    for m in (396, 400, 6144):
+        assert tps_warp(img, torch.zeros((1, m, 2)), torch.zeros((64, m))).shape == img.shape
+    monkeypatch.setenv("PARTSEG_WARP_BAND", "56")
+    monkeypatch.setenv("PARTSEG_WARP_TILE", str(2 ** 20))
+    big = torch.zeros((1, 1024, 1024, 1))
     with pytest.raises(ValueError, match="shared memory"):
-        tps_warp(img, torch.zeros((1, 400, 2)), torch.zeros((64, 400)))
-    assert tps_warp(img, torch.zeros((1, 396, 2)), torch.zeros((64, 396))).shape == img.shape
+        tps_warp(big, torch.zeros((1, 28, 2)), torch.zeros((2 ** 20, 28)))
 
 
 def test_kernel_modules_import_and_run_on_cpu_without_building():

@@ -193,7 +193,8 @@ def _imports(path: Path) -> set[str]:
 def test_port_imports_nothing_of_jax():
     files = sorted((REPO / "partseg_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 15
-    banned = {"jax", "jaxlib", "flax", "chex", "optax", "orbax", "partseg_tpu", "configs"}
+    banned = {"jax", "jaxlib", "flax", "chex", "optax", "orbax", "grain", "tensorflow",
+              "partseg_tpu", "configs"}
     for path in files:
         bad = _imports(path) & banned
         assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"

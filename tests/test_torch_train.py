@@ -23,6 +23,8 @@ updated params as ``_compare_params`` says.
 """
 
 import dataclasses
+import importlib
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -48,10 +50,11 @@ from partseg_tpu_torch.augment import (
     ColorParams,
     PairDraws,
     TPSParams,
-    sample_pair_draws,
+    keyed_pair_draws,
 )
 from partseg_tpu_torch.losses import PerceptualLoss, VGG19Features
 from partseg_tpu_torch.models.partnet import PartNet, PartNetConfig, init_weights
+from partseg_tpu_torch.train.config import load_config
 from partseg_tpu_torch.train import (
     LossConfig,
     OptimConfig,
@@ -65,6 +68,7 @@ from _torch_parity import flax_params_from_port, images, n, t
 
 torch.set_num_threads(1)
 
+REPO = Path(__file__).resolve().parent.parent
 B = 4
 START = 5          # lr = 1e-3 · 5/10 under the 10-step warmup
 KEY = 7
@@ -229,9 +233,9 @@ def test_train_configs_have_the_jax_fields_and_defaults():
     assert {f.name for f in dataclasses.fields(TrainConfig)} == top
 
 
-def test_speed128_preset_equals_jax_config():
-    want = jax_speed128()
-    got = configs.train_config("speed128")
+def _assert_same_config(got: TrainConfig, want: jconfig.TrainConfig) -> None:
+    """A port TrainConfig equals a JAX one field for field, the model's
+    dtype as the torch dtype of the same name."""
     for section in ("augment", "loss", "optim"):
         assert dataclasses.asdict(getattr(got, section)) == dataclasses.asdict(getattr(want, section))
     for f in dataclasses.fields(JModel):
@@ -243,6 +247,39 @@ def test_speed128_preset_equals_jax_config():
     for f in dataclasses.fields(jconfig.TrainConfig):
         if f.name not in ("model", "augment", "loss", "optim"):
             assert getattr(got, f.name) == getattr(want, f.name), f.name
+
+
+PRESET_NAMES = sorted(p.stem for p in (REPO / "configs").glob("*.py") if p.stem != "__init__")
+
+
+@pytest.mark.parametrize("name", PRESET_NAMES)
+def test_train_preset_equals_jax_config(name):
+    """Every file of configs/ has its port preset, equal to its
+    get_config() field for field; load_config resolves the file's path to
+    it without running the file."""
+    want = importlib.import_module(f"configs.{name}").get_config()
+    got = load_config(f"configs/{name}.py")
+    assert got is configs.TRAIN_PRESETS[name] is load_config(name)
+    _assert_same_config(got, want)
+
+
+def test_load_config_runs_a_port_config_file(tmp_path):
+    path = tmp_path / "mine.py"
+    path.write_text("from partseg_tpu_torch.configs import train_config\n"
+                    "def get_config():\n"
+                    "    return train_config('synthetic', ['steps=7'])\n")
+    assert load_config(str(path)).steps == 7
+    assert set(configs.TRAIN_PRESETS) == set(PRESET_NAMES)
+    with pytest.raises(KeyError, match="no port preset"):
+        load_config("configs/imagenet.py")
+    with pytest.raises(KeyError, match="unknown config"):
+        load_config("imagenet")
+
+
+def test_speed128_preset_equals_jax_config():
+    want = jax_speed128()
+    got = configs.train_config("speed128")
+    _assert_same_config(got, want)
     over = configs.train_config("speed128", ["optim.lr=3e-4", "augment.warp_every=1"])
     assert over.optim.lr == 3e-4 and over.augment.warp_every == 1
     assert over.model == got.model
@@ -258,7 +295,7 @@ def test_uint8_images_train_as_their_float_values():
     vgg = VGG19Features(pcfg.loss.vgg_layers, pcfg.loss.vgg_trim_blocks, torch.float32)
     perc = PerceptualLoss(init_weights(vgg, seed=2), feature_resolution=pcfg.loss.vgg_resolution)
     sampler = pcfg.augment.make_sampler()
-    draws = sample_pair_draws(torch.Generator().manual_seed(3), B, sampler, pcfg.augment)
+    draws = keyed_pair_draws(3, 0, np.arange(B), sampler, pcfg.augment)
     u8 = torch.from_numpy((images(22, B, 16) * 255).round().astype(np.uint8))
     loss_fn = make_loss_fn(pcfg, model, sampler, perc)
     with torch.no_grad():

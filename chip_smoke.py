@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive partseg_tpu_torch's serving and training paths on one CUDA card
-and check them.
+"""Drive partseg_tpu_torch's serving, training and evaluation paths on
+one CUDA card and check them.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --baseline DIR   # kernels against another checkout's
@@ -42,6 +42,25 @@ Phases (one JSON line each; any failure exits non-zero):
                     the CLI killed at step 5 by fault injection (exit 42)
                     and resumed; device_data against streaming; 32 steps
                     with the default algorithms.
+     evals        — the landmark and segmentation protocols with the
+                    CelebA model (bf16, B = 256) over a 600-example
+                    synthetic split, remainder batch included; card at f32
+                    against the CPU on its tail; μ-collection img/s.
+     export       — the CelebA infer forward exported with a symbolic
+                    batch: the graph holds partseg::softmax_moments; saved,
+                    loaded and served at B = 256 and 37 against eager; a
+                    static batch refuses 37; exported against eager img/s.
+     golden       — the port at bf16 against tests/golden/golden.npz.
+     validate     — tools.validate_synthetic (the synthetic preset, 600
+                    steps through the loop) under the reference's pass
+                    rule, then tools.validate_segmentation.
+     cli          — the infer, transfer, eval and export CLIs on validate's
+                    checkpoint (infer and transfer as arrays without cv2).
+     path_kernels — softmax_moments, render_assemble (forward; backward
+                    kernel where the path trained) and tps_warp against
+                    their plain versions on the inputs the evals, export,
+                    golden, validate and cli paths gave them (the first
+                    call of each shape, kept while the path ran).
   9. timing       — each kernel's device time per call (torch.profiler,
                     host excluded) and its wrapper's CUDA-event median
                     (host included), at the serving and the training
@@ -49,10 +68,14 @@ Phases (one JSON line each; any failure exits non-zero):
                     library call where there is one; the end-to-end
                     requests and train period; bounds from the H100's
                     peaks.
+     tps_wide     — tps_warp with a basis staged in chunks (grid 20, and
+                    grid 15 banded): against the plain sample, and timed.
  10. profile      — torch.profiler device time by kernel family over one
                     infer, one transfer request and one train period, and
                     the device's idle share.
-Then the kernels line, nvidia-smi's line, and the final status line.
+Then the kernels line (each kernel's launches on the train period, and
+on each later path in launches_by_path), nvidia-smi's line, and the
+final status line.
 
 With --baseline DIR (DIR holds another checkout of the repo, such as a
 `git archive` of an earlier commit unpacked into a gitignored directory)
@@ -68,14 +91,18 @@ Imports nothing of JAX: it needs only this checkout, PyTorch and nvcc.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import importlib
 import importlib.util
+import io
 import json
 import math
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -83,6 +110,7 @@ from pathlib import Path
 # cuBLAS workspace setting before the first cuBLAS handle exists.
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
@@ -95,7 +123,20 @@ from partseg_tpu_torch.augment import (
 )
 from partseg_tpu_torch.bench import build_trainer
 from partseg_tpu_torch.configs import model_config, train_config
-from partseg_tpu_torch.evals import make_infer_fn, transfer_batch
+from partseg_tpu_torch.data import SyntheticBlobs, make_loader
+from partseg_tpu_torch.evals import (
+    collect_mu,
+    evaluate_segmentation,
+    export_infer,
+    infer_image,
+    load_exported,
+    load_model_and_params,
+    make_infer_fn,
+    transfer,
+    transfer_batch,
+)
+from partseg_tpu_torch.evals.infer import render_overlay
+from partseg_tpu_torch.evals.transfer import full_size_decoder
 from partseg_tpu_torch.models.partnet import PartNet, init_weights
 from partseg_tpu_torch.partops import bilinear_sample
 from partseg_tpu_torch.partops.kernels import (
@@ -127,6 +168,7 @@ from partseg_tpu_torch.train import (
 )
 from partseg_tpu_torch.train.state import trainable, warmup_cosine
 
+ROOT = Path(__file__).resolve().parent
 BATCH = 256                   # serving requests
 TRAIN_BATCH = 128             # speed128's per-card batch
 SEED = 0
@@ -139,6 +181,14 @@ PROFILE_CALLS = 20            # calls per torch.profiler window of one kernel
 
 class SmokeError(RuntimeError):
     pass
+
+
+def _load_module(path: Path, name: str | None = None):
+    """The module in the file ``path``, loaded under ``name`` (its stem by default)."""
+    spec = importlib.util.spec_from_file_location(name or path.stem, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def check(cond: bool, msg: str) -> None:
@@ -569,13 +619,19 @@ def backward_cases(gen, batch=TRAIN_BATCH):
     }
 
 
+def _strided_copy(x: torch.Tensor) -> torch.Tensor:
+    """A copy of ``x`` with its strides (``clone`` makes a strided slice,
+    such as the foreground logits, contiguous)."""
+    return torch.empty_strided(x.shape, x.stride(), dtype=x.dtype, device=x.device).copy_(x)
+
+
 def _graph(fn, inputs, seed):
     """(outputs, inputs requiring grad, seeded cotangents) of fn."""
-    xs = [x.detach().clone().requires_grad_() for x in inputs]
+    xs = [_strided_copy(x.detach()).requires_grad_() for x in inputs]
     outs = fn(*xs)
     outs = list(outs) if isinstance(outs, (tuple, list)) else [outs]
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    cots = [torch.randn(o.shape, generator=g, device="cuda").to(o.dtype) for o in outs]
+    g = torch.Generator(device=xs[0].device).manual_seed(seed)
+    cots = [torch.randn(o.shape, generator=g, device=o.device).to(o.dtype) for o in outs]
     return outs, xs, cots
 
 
@@ -896,6 +952,12 @@ _CATEGORIES = (   # (category, lower-case kernel-name substrings), first match w
 )
 
 
+# The kernel wrappers' backward nodes: softmax_moments' is the one autograd
+# generates for the registered op; the others are autograd Functions.
+BACKWARD_NODES = ("GeneratedBackwardFor_partseg_softmax_moments_defaultBackward",
+                  "_RenderAssembleBackward", "_TPSWarpBackward", "_BilinearSampleBackward")
+
+
 def _profile_one(name: str, fn, batch: int) -> None:
     from torch.profiler import ProfilerActivity, profile
 
@@ -927,8 +989,7 @@ def _profile_one(name: str, fn, batch: int) -> None:
     host = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CPU]
     top_host = sorted(host, key=lambda e: -e.self_cpu_time_total)[:10]
     backward_nodes = {e.key: {"cpu_ms": e.cpu_time_total / 1e3, "calls": e.count} for e in host
-                      if e.key in ("_SoftmaxMomentsBackward", "_RenderAssembleBackward",
-                                   "_TPSWarpBackward", "_BilinearSampleBackward")}
+                      if e.key in BACKWARD_NODES}
     emit("profile", request=name, batch=batch, wall_ms=wall_ms, unprofiled_wall_ms=unprofiled_ms,
          device_ms=total, idle_share=(1 - total / wall_ms) if wall_ms > 0 else None,
          kernel_launches=sum(e.count for e in kernels),
@@ -1172,10 +1233,8 @@ def _backward_rule(baseline: Path):
     """The tile rule of a checkout's render_assemble backward, loaded from
     its own wrapper module: (backward_tile, backward_partial_rows or None
     where the scratch holds one row per tile)."""
-    path = baseline / "partseg_tpu_torch" / "partops" / "kernels" / "render_assemble.py"
-    spec = importlib.util.spec_from_file_location("baseline_render_assemble", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
+    mod = _load_module(baseline / "partseg_tpu_torch" / "partops" / "kernels"
+                       / "render_assemble.py", "baseline_render_assemble")
     return mod.backward_tile, getattr(mod, "backward_partial_rows", None)
 
 
@@ -1183,8 +1242,10 @@ def phase_tps_wide(smi: str) -> None:
     """tps_warp where the basis is staged in chunks of columns: grid 20
     unbanded (M = 403) and grid 15 at band kh = 56 (M = 228), at the
     training warp shape (32 images of 128²×3 bf16). Device time per call
-    beside the bound. The output is held within one bf16 ulp below 1
-    (2⁻⁸, + 1e-4) of the plain sample at the flow summed in the kernel's
+    beside the bound, the wrapper's and the plain version's event times,
+    and the library pair's (tps_flow + F.grid_sample, unbanded). The
+    output is held within one bf16 ulp below 1 (2⁻⁸, + 1e-4) of the plain
+    sample at the flow summed in the kernel's
     order (kernel_order_flow), as the card tests hold it: the plain
     einsum's order differs from the kernel's by up to 0.006 px at grid 20,
     so its error is printed beside the check, unchecked."""
@@ -1208,9 +1269,16 @@ def phase_tps_wide(smi: str) -> None:
                                      "flow in the kernel's order")
         einsum_err = max_err(got, tps_warp_plain(img.float(), weights, basis, band, tile))
         bound, by = bound_ms(*tps_warp_bound(32, 128, 128, 3, m, 2))
+        pair = tps_library_pair(img, weights, basis)
         emit("tps_wide", grid=grid, m=m, band=band, chunk=plan.chunk, group=plan.group,
              max_abs_vs_kernel_order=err, max_abs_vs_plain_einsum=einsum_err,
              device_ms=[device_ms(lambda: tps_warp(img, weights, basis)) for _ in range(2)],
+             ms=event_ms(lambda: tps_warp(img, weights, basis), inner=KERNEL_INNER),
+             plain_ms=event_ms(lambda: tps_warp_plain(img, weights, basis, band, tile),
+                               inner=KERNEL_INNER),
+             library_pair=TPS_LIBRARY_PAIR + ("" if not band else "; unbanded"),
+             library_pair_device_ms=device_ms(pair),
+             library_pair_ms=event_ms(pair, inner=KERNEL_INNER),
              bound_ms=bound, bound_by=by, nvidia_smi=smi)
     _with_band(0)
     if prior is not None:
@@ -1447,7 +1515,7 @@ def phase_turns(cfg, baseline: Path, smi: str) -> None:
 
     cots = [torch.randn((TRAIN_BATCH, res, res, app.shape[-1]), generator=gen, device="cuda")
             for res, app in tscales]
-    rules = {id(old): _backward_rule(baseline), id(new): _backward_rule(Path(__file__).parent)}
+    rules = {id(old): _backward_rule(baseline), id(new): _backward_rule(ROOT)}
 
     def backward_call(scales, grads):
         def make(lib):
@@ -1529,6 +1597,452 @@ def phase_turns(cfg, baseline: Path, smi: str) -> None:
     emit("turns", case="F.grid_sample training (library)", device_ms=library, nvidia_smi=smi)
 
 
+EVAL_EXAMPLES = 600           # 2 batches of 256 and a remainder of 88
+TAIL_TOL = 2 ** -8            # μ of padded remainder rows against an unpadded forward (bf16)
+VALIDATE_STEPS = 600          # validate_synthetic's default
+
+
+def _split_loader(ds, batch):
+    """The eval protocols' loader: the whole split once, in order, the
+    remainder batch included."""
+    return make_loader(ds, batch, shuffle=False, num_epochs=1, drop_remainder=False,
+                       num_workers=4)
+
+
+def phase_evals(cfg, served: dict, smi: str) -> dict:
+    """The landmark and segmentation protocols (evals/landmarks.py,
+    evals/segmentation.py) with the celeba model of phase serving (full
+    width, bf16) on a synthetic split of 600 examples (128 px, 10 blobs,
+    with masks) at B = 256, remainder batch included:
+      - collect_mu scores all 600 and launches softmax_moments once per
+        batch (3); its padded remainder rows give the μ of an unpadded
+        forward of those rows within one bf16 ulp below 1 (2⁻⁸: the two
+        batch sizes may take other cuDNN algorithms);
+      - a second collect_mu pass, every example rendered already, gives
+        the protocol's img/s (host batch assembly included);
+      - evaluate_segmentation scores all 600 (its forward is the shape
+        encoder and the per-pixel part softmax: no hand kernel);
+      - the card at f32 against the CPU on the split's last 24 examples
+        (a batch of 16 and a remainder of 8 padded to 16): μ within 1e-4
+        of its scale, phase parity's tolerance."""
+    model = served["model"]
+    ds = SyntheticBlobs(size=cfg.img_size, n_blobs=10, n_examples=EVAL_EXAMPLES, with_masks=True)
+    batches = -(-EVAL_EXAMPLES // BATCH)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    mu, gt = collect_mu(model, _split_loader(ds, BATCH))
+    first_s = time.perf_counter() - t0
+    launches = launch_counts()
+    check(mu.shape == (EVAL_EXAMPLES, cfg.n_parts, 2) and gt.shape == (EVAL_EXAMPLES, 10, 2),
+          f"collect_mu shapes {mu.shape}, {gt.shape}")
+    check(bool(np.isfinite(mu).all()) and np.abs(mu).max() <= 1.0, "collect_mu: μ not finite in [-1, 1]")
+    check(launches["softmax_moments"] == batches,
+          f"collect_mu launched softmax_moments {launches['softmax_moments']} times, "
+          f"expected one per batch ({batches})")
+    t0 = time.perf_counter()
+    collect_mu(model, _split_loader(ds, BATCH))
+    second_s = time.perf_counter() - t0
+
+    tail0 = (batches - 1) * BATCH
+    tail = torch.from_numpy(np.stack([ds[i]["image"] for i in range(tail0, EVAL_EXAMPLES)]))
+    with torch.inference_mode():
+        _, mu_tail, _ = model.shape_stats(model.encode_shape(tail.cuda()))
+    tail_err = float(np.abs(mu[tail0:] - mu_tail.cpu().numpy()).max())
+    check(tail_err <= TAIL_TOL, f"padded remainder μ differs from an unpadded forward: {tail_err}")
+
+    seen = []
+
+    def counted(it):
+        for b in it:
+            seen.append(len(b["image"]))
+            yield b
+
+    reset_launch_counts()
+    seg = evaluate_segmentation(model, counted(_split_loader(ds, BATCH)), n_classes=11)
+    seg_launches = launch_counts()
+    check(sum(seen) == EVAL_EXAMPLES and len(seen) == batches,
+          f"evaluate_segmentation saw batches {seen}")
+    check(all(0.0 <= seg[k] <= 1.0 for k in ("miou", "fg_iou")), f"segmentation metrics {seg}")
+
+    f32 = model_config("celeba", use_pallas=True, dtype=torch.float32)
+    cpu = init_weights(PartNet(f32, device="cpu"), seed=SEED).eval()
+    gpu = PartNet(f32)
+    gpu.load_state_dict(cpu.state_dict())
+    gpu.eval()
+    part = [ds[i] for i in range(EVAL_EXAMPLES - 24, EVAL_EXAMPLES)]
+    slices = [{k: np.stack([e[k] for e in part[a:b]]) for k in ("image", "landmarks")}
+              for a, b in ((0, 16), (16, 24))]
+    want, _ = collect_mu(cpu, iter(slices))
+    got, _ = collect_mu(gpu, iter(slices))
+    f32_err = float(np.abs(got - want).max())
+    scale = float(np.abs(want).max())
+    check(f32_err <= 1e-4 * max(scale, 1.0), f"collect_mu card vs CPU at f32: {f32_err}")
+    emit("evals", examples=EVAL_EXAMPLES, batch=BATCH, dtype=str(cfg.dtype),
+         batches_seen=seen, launches_collect_mu=launches,
+         launches_evaluate_segmentation=seg_launches,
+         remainder_mu_max_abs_vs_unpadded=tail_err, remainder_tolerance=TAIL_TOL,
+         f32_card_vs_cpu_mu_max_abs=f32_err, f32_mu_scale=scale,
+         collect_mu_first_pass_s=first_s, collect_mu_s=second_s,
+         collect_mu_img_per_s=EVAL_EXAMPLES / second_s, segmentation=seg, nvidia_smi=smi)
+    return launches
+
+
+EXPORT_TOL = 1e-5             # exported vs eager outputs, relative to max(scale, 1)
+
+
+def phase_export(cfg, served: dict, smi: str) -> dict:
+    """The celeba infer forward (bf16, full width) exported on the card
+    with a symbolic batch (evals/export.py): the graph holds
+    partseg::softmax_moments once, no einsum, and no softmax but the
+    per-pixel part softmax over the channels; saved with torch.export.save
+    and loaded, it serves B = 256 and B = 37, launching the kernel once per
+    request, and agrees with eager make_infer_fn: both run the same ops and
+    kernel, so outputs within 1e-5 of their scale (f32 rounding of
+    identical ops) and seg identical. A static-batch export refuses B = 37.
+    Infer img/s of the loaded program against eager, in turns."""
+    model, x = served["model"], served["x_s"]
+    x37 = x[:37].contiguous()
+    t0 = time.perf_counter()
+    program = export_infer(model, cfg.img_size)
+    export_s = time.perf_counter() - t0
+    calls = [node for node in program.graph.nodes if node.op == "call_function"]
+    names = [str(node.target) for node in calls]
+    softmaxes = [node for node in calls
+                 if "softmax" in str(node.target) and "partseg" not in str(node.target)]
+    check(names.count("partseg.softmax_moments.default") == 1,
+          f"exported graph holds partseg.softmax_moments {names.count('partseg.softmax_moments.default')} times")
+    check(not any("einsum" in name for name in names), "exported graph holds an einsum")
+    check(len(softmaxes) == 1 and softmaxes[0].args[1] in (-1, 3),
+          f"exported graph softmaxes {[(str(n.target), n.args[1:]) for n in softmaxes]}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "infer.pt2")
+        torch.export.save(program, path)
+        size = os.path.getsize(path)
+        loaded = load_exported(path).module()
+
+    @torch.inference_mode()
+    def serve(images):
+        return loaded(images)
+
+    eager = make_infer_fn(model)
+    errs = {}
+    launches = dict.fromkeys(launch_counts(), 0)
+    for b, xb in ((BATCH, x), (37, x37)):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        got = serve(xb)
+        torch.cuda.synchronize()
+        check(softmax_moments.launches == 1,
+              f"exported program at B = {b} launched softmax_moments {softmax_moments.launches} times")
+        launches = {k: v + launch_counts()[k] for k, v in launches.items()}
+        want = eager(xb)
+        errs[b] = {}
+        for k in want:
+            check(got[k].shape == want[k].shape and got[k].dtype == want[k].dtype,
+                  f"exported {k} at B = {b}: {tuple(got[k].shape)} {got[k].dtype}")
+            if k == "seg":
+                check(torch.equal(got[k], want[k]), f"exported seg at B = {b} differs from eager")
+                continue
+            err = max_err(got[k], want[k])
+            errs[b][k] = err
+            check(err <= EXPORT_TOL * max(want[k].abs().max().item(), 1.0),
+                  f"exported {k} at B = {b}: {err} from eager")
+    static = export_infer(model, cfg.img_size, batch=BATCH).module()
+    try:
+        static(x37)
+        refused = None
+    except Exception as e:   # the guard's error type differs between torch versions
+        refused = type(e).__name__
+    check(refused is not None, "a static B = 256 export accepted B = 37")
+    ms = [event_ms(lambda: eager(x), warmup=2), event_ms(lambda: serve(x), warmup=2),
+          event_ms(lambda: serve(x), warmup=2), event_ms(lambda: eager(x), warmup=2)]
+    emit("export", batch=BATCH, dtype=str(cfg.dtype), export_s=export_s, program_bytes=size,
+         graph_calls=len(calls), max_abs_vs_eager=errs, tolerance=EXPORT_TOL,
+         static_batch_refuses_37=refused,
+         turns_ms={"eager": [ms[0], ms[3]], "exported": [ms[1], ms[2]]},
+         eager_img_per_s=[BATCH / t * 1e3 for t in (ms[0], ms[3])],
+         exported_img_per_s=[BATCH / t * 1e3 for t in (ms[1], ms[2])], launches=launches,
+         nvidia_smi=smi)
+    return launches
+
+
+def phase_golden(smi: str) -> dict:
+    """The port at bf16 on the card against tests/golden/golden.npz, the
+    JAX package's bf16 outputs, on the weights and draws JAX made
+    (tests/golden/torch_golden_inputs.npz): the f32 pair within 2e-4 and
+    each model output within twice the reference's own bf16 rounding
+    error (tests/_torch_golden.py)."""
+    golden = _load_module(ROOT / "tests" / "_torch_golden.py")
+
+    reset_launch_counts()
+    result = golden.check("cuda")
+    launches = launch_counts()
+    emit("golden", outputs=result, launches=launches, nvidia_smi=smi)
+    for k, r in result.items():
+        check(r["max_abs_err"] <= r["bound"], f"golden {k}: {r['max_abs_err']} > {r['bound']}")
+    want = {"softmax_moments": 2, "render_assemble": 3, "tps_warp": 1, "bilinear_sample": 0,
+            "render_assemble_backward": 0}
+    check(launches == want, f"golden launches {launches}, expected {want}")
+    return launches
+
+
+def phase_validate(run_dir: str, smi: str) -> dict:
+    """partseg_tpu_torch.tools.validate_synthetic: the synthetic preset at
+    its full width (64 px, K = 5, features 64, depth 3, VGG to relu3_2,
+    B = 32) trains VALIDATE_STEPS steps through the loop on the card, then
+    the landmark protocol scores it against a random model; then
+    validate_segmentation on its checkpoint. Fails when the reference's
+    rule fails: equivariance loss halved, trained error under 0.6× the
+    random model's."""
+    from partseg_tpu_torch.tools import validate_segmentation, validate_synthetic
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    result = validate_synthetic.main(VALIDATE_STEPS, run_dir, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    t0 = time.perf_counter()
+    seg = validate_segmentation.main(run_dir, device="cuda")
+    seg_wall = time.perf_counter() - t0
+    emit("validate", config="synthetic", steps=VALIDATE_STEPS, result=result, segmentation=seg,
+         wall_s=wall, segmentation_wall_s=seg_wall, launches=launches, nvidia_smi=smi)
+    check(result["ok"], f"validate_synthetic failed the reference's rule: {result}")
+    check(all(launches[k] > 0 for k in ("tps_warp", "softmax_moments", "render_assemble",
+                                        "render_assemble_backward")),
+          f"validate launches {launches}")
+    return launches
+
+
+@contextlib.contextmanager
+def _captured():
+    """Capture standard output into the yielded list's one string."""
+    buf, out = io.StringIO(), []
+    with contextlib.redirect_stdout(buf):
+        yield out
+    out.append(buf.getvalue())
+
+
+def phase_cli(run_dir: str, smi: str) -> dict:
+    """The user's path on validate's checkpoint (the synthetic preset):
+    the infer and transfer CLIs on PNGs where cv2 imports, else their
+    compute paths on arrays (load_model_and_params, infer_image and
+    render_overlay; transfer at the full decode size); the eval CLI with
+    --dump (4 batches of 64 of each split); the export CLI with --verify.
+    The CLIs run in this process on the card."""
+    infer_cli = importlib.import_module("partseg_tpu_torch.evals.infer")
+    transfer_cli = importlib.import_module("partseg_tpu_torch.evals.transfer")
+    eval_cli = importlib.import_module("partseg_tpu_torch.evals.cli")
+    export_cli = importlib.import_module("partseg_tpu_torch.evals.export")
+    from partseg_tpu_torch.train.config import load_config
+
+    try:
+        import cv2
+    except ImportError:
+        cv2 = None
+    common = ["--config", "synthetic", "--ckpt_dir", run_dir]
+    restored = f"[infer] restored step {VALIDATE_STEPS}"
+    reset_launch_counts()
+    rng = np.random.default_rng(SEED)
+    imgs = [rng.uniform(0, 1, (64, 64, 3)).astype(np.float32) for _ in range(2)]
+    with tempfile.TemporaryDirectory() as tmp:
+        if cv2 is not None:
+            pngs = [os.path.join(tmp, f"in{i}.png") for i in range(2)]
+            for p, img in zip(pngs, imgs):
+                cv2.imwrite(p, (img * 255).astype(np.uint8))
+            viz, swap = os.path.join(tmp, "viz.png"), os.path.join(tmp, "t.png")
+            with _captured() as log:
+                infer_cli.main(common + ["--image", pngs[0], "--out", viz])
+                transfer_cli.main(common + ["--shape", pngs[0], "--appearance", pngs[1],
+                                            "--out", swap])
+            check(log[0].count(restored) == 2 and cv2.imread(viz).shape == (64, 64, 3)
+                  and cv2.imread(swap).shape == (64, 64, 3), f"infer/transfer CLIs: {log[0][-2000:]}")
+            ran = ["infer.main", "transfer.main"]
+        else:
+            print("cv2: absent", flush=True)
+            cfg = load_config("synthetic")
+            with _captured() as log:
+                res = infer_image(load_model_and_params(cfg, run_dir), imgs[0])
+                viz = render_overlay(imgs[0], res)
+                swap = transfer(load_model_and_params(full_size_decoder(cfg), run_dir), *imgs)
+            check(log[0].count(restored) == 2 and viz.shape == (64, 64, 3)
+                  and swap.shape == (64, 64, 3) and np.isfinite(swap).all()
+                  and np.isfinite(res["landmarks"]).all(), f"infer/transfer paths: {log[0]}")
+            ran = ["load_model_and_params", "infer_image", "render_overlay", "transfer"]
+        dump = os.path.join(tmp, "mu.npz")
+        with _captured() as log:
+            eval_cli.main(common + ["--batch", "64", "--max_batches", "4", "--dump", dump])
+        metrics = json.loads(log[0].strip().splitlines()[-1])
+        with np.load(dump) as data:
+            dumped = data["mu"].shape
+        check(metrics["n_train"] == metrics["n_test"] == 256.0 and dumped == (256, 5, 2)
+              and math.isfinite(metrics["landmark_error_pct_iod"]), f"eval CLI: {log[0][-2000:]}")
+        with _captured() as log:
+            export_cli.main(common + ["--out", os.path.join(tmp, "infer.pt2"), "--verify"])
+        check("[export] verify OK" in log[0], f"export CLI: {log[0][-2000:]}")
+        ran += ["evals.cli.main --dump", "evals.export.main --verify"]
+    launches = launch_counts()
+    check(launches["softmax_moments"] > 0 and launches["render_assemble"] > 0,
+          f"cli launches {launches}")
+    emit("cli", cv2="absent" if cv2 is None else "present", ran=ran, eval_metrics=metrics,
+         launches=launches, nvidia_smi=smi)
+    return launches
+
+
+# --------------------------------------------- kernels at the paths' shapes
+
+PATH_INPUTS: dict = {}   # (kernel, signature) → (path, grad enabled, inputs): first calls
+
+
+def _record(kernel: str, path: str, signature: tuple, inputs) -> None:
+    key = (kernel, *signature)
+    if key not in PATH_INPUTS:
+        grad = torch.is_grad_enabled()
+        with torch.inference_mode(False), torch.no_grad():
+            PATH_INPUTS[key] = (path, grad, inputs())
+
+
+@contextlib.contextmanager
+def recording(path: str):
+    """While ``path`` runs, keep the inputs of the first kernel call of
+    each new signature (shape, strides, dtype, options), as the path's own
+    callers make them: softmax_moments from PartNet.shape_stats (the
+    strided foreground slice), render_assemble from the decoder, tps_warp
+    from TPSSampler.warp. An export's trace (fake tensors) and calls on
+    the CPU are not kept.
+    The calls go on to the wrappers unchanged, and phase path_kernels
+    holds each kernel to its plain version on what was kept."""
+    import partseg_tpu_torch.models.decoder as decoder_mod
+    import partseg_tpu_torch.models.partnet as partnet_mod
+
+    sm, ra, warp = partnet_mod.softmax_moments, decoder_mod.render_assemble, TPSSampler.warp
+
+    def real(*xs):
+        return not torch.compiler.is_compiling() and all(
+            type(x) is torch.Tensor and x.is_cuda for x in xs)
+
+    def softmax_moments_rec(logits):
+        if real(logits):
+            _record("softmax_moments", path, (tuple(logits.shape), logits.stride()),
+                    lambda: [_strided_copy(logits)])
+        return sm(logits)
+
+    def render_assemble_rec(mu, lam, app, h, w, kernel="gauss"):
+        if real(mu, lam, app):
+            _record("render_assemble", path, (tuple(app.shape), app.dtype, h, w, kernel),
+                    lambda: [mu.clone(), lam.clone(), app.clone(), h, w, kernel])
+        return ra(mu, lam, app, h, w, kernel)
+
+    def warp_rec(self, params, image, padding_mode="border"):
+        if padding_mode == "border" and real(image, params.weights):
+            _, h, w, _ = image.shape
+            _record("tps_warp", path, (tuple(image.shape), image.dtype,
+                                       tuple(params.weights.shape)),
+                    lambda: [image.clone(), params.weights.contiguous().clone(),
+                             self.flow_basis(h, w, image.device).clone()])
+        return warp(self, params, image, padding_mode)
+
+    partnet_mod.softmax_moments, decoder_mod.render_assemble = softmax_moments_rec, render_assemble_rec
+    TPSSampler.warp = warp_rec
+    try:
+        yield
+    finally:
+        partnet_mod.softmax_moments, decoder_mod.render_assemble, TPSSampler.warp = sm, ra, warp
+
+
+def phase_path_kernels() -> dict:
+    """Each kernel against its plain version on the inputs that the evals,
+    export, golden, validate and cli paths gave it (``recording``): the
+    CelebA model's remainder batch, the golden model's K = 4, the
+    synthetic preset's K = 5 foreground slice of 6 logits, its 3-scale
+    decoder and its 64² warp head. Tolerances are phase kernels',
+    kernels_warp's and backward's: softmax_moments parts rtol 1e-5, μ and
+    Σ atol 1e-5; render_assemble 1e-5 of the largest output; tps_warp f32
+    1e-4, bf16 2⁻⁸ + 1e-4. Where the path took gradients (validate's
+    training): softmax_moments' gradient against autograd through the
+    plain version, 1e-4 of each cotangent's largest, and render_assemble's
+    backward kernel against its closed form, 1e-5 of each cotangent's
+    largest (a bf16 d_app within one bf16 ulp, rtol 2⁻⁷). Repeats give the
+    same bits."""
+    report = []
+    errs = {"softmax_moments": 0.0, "render_assemble": 0.0, "tps_warp": 0.0}
+    for i, ((kernel, *sig), (path, grad, inputs)) in enumerate(PATH_INPUTS.items()):
+        row = {"kernel": kernel, "path": path, "grad": grad}
+        if kernel == "softmax_moments":
+            (x,) = inputs
+            got, again, want = softmax_moments(x), softmax_moments(x), softmax_moments_plain(x)
+            e = [max_err(a, b) for a, b in zip(got, want)]
+            row.update(shape=list(x.shape), ld=x.stride(2), parts_mu_sigma_max_abs=e)
+            check(torch.allclose(got[0], want[0], rtol=1e-5, atol=1e-30)
+                  and max(e[1:]) <= 1e-5, f"softmax_moments at {path}'s {list(x.shape)} "
+                                          f"(ld {x.stride(2)}): {e}")
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"softmax_moments repeat differs at {path}'s {list(x.shape)}")
+            errs[kernel] = max(errs[kernel], *e)
+            if grad:
+                g = [_scaled_err(a, b) for a, b in zip(_grads(softmax_moments, [x], SEED + i),
+                                                       _grads(softmax_moments_plain, [x],
+                                                              SEED + i))]
+                row["grad_scaled_err"] = g
+                check(all(math.isfinite(v) and v <= 1e-4 for v in g),
+                      f"softmax_moments gradient at {path}'s {list(x.shape)}: {g}")
+        elif kernel == "render_assemble":
+            mu, lam, app, h, w, kind = inputs
+            out, ref = render_assemble(mu, lam, app, h, w, kind), render_assemble_plain(
+                mu, lam, app, h, w, kind)
+            e, scale = max_err(out, ref), ref.abs().max().item()
+            row.update(app=list(app.shape), dtype=str(app.dtype), res=h, render_kernel=kind,
+                       max_abs=e, max_abs_out=scale)
+            check(bool(torch.isfinite(out).all()) and e <= 1e-5 * scale,
+                  f"render_assemble at {path}'s {list(app.shape)} {h}²: {e} > 1e-5·{scale}")
+            errs[kernel] = max(errs[kernel], e)
+            if grad:
+                gen = torch.Generator(device=app.device).manual_seed(SEED + i)
+                g = torch.randn((app.shape[0], h, w, app.shape[-1]), generator=gen,
+                                device=app.device)
+                got = render_assemble_backward(mu, lam, app, h, w, kind, g)
+                again = render_assemble_backward(mu, lam, app, h, w, kind, g)
+                want = render_assemble_vjp(mu, lam, app, h, w, kind, g)
+                ge = [_scaled_err(a, b) for a, b in zip(got, want)]
+                row["backward_scaled_err"] = ge
+                d_scale = want[2].float().abs().max().item()
+                check(all(math.isfinite(v) for v in ge) and max(ge[:2]) <= 1e-5
+                      and torch.allclose(got[2].float(), want[2].float(), atol=1e-5 * d_scale,
+                                         rtol=0 if app.dtype == torch.float32 else 2 ** -7),
+                      f"render_assemble backward kernel at {path}'s {list(app.shape)} {h}²: {ge}")
+                check(got[2].dtype == app.dtype and all(torch.equal(a, b)
+                                                        for a, b in zip(got, again)),
+                      f"render_assemble backward kernel at {path}'s {h}²: dtype or repeat")
+        else:
+            im, weights, basis = inputs
+            band, tile = band_config(im.dtype, im.shape[1], im.shape[2])
+            got, again = tps_warp(im, weights, basis), tps_warp(im, weights, basis)
+            want = tps_warp_plain(im.float(), weights, basis, band, tile).to(im.dtype)
+            e = max_err(got, want)
+            tol = 1e-4 if im.dtype == torch.float32 else 2 ** -8 + 1e-4
+            row.update(shape=list(im.shape), dtype=str(im.dtype), m=weights.shape[1],
+                       max_abs=e)
+            check(got.dtype == im.dtype and e <= tol and torch.equal(got, again),
+                  f"tps_warp at {path}'s {list(im.shape)} {im.dtype}: {e} > {tol} or repeat")
+            if im.dtype == torch.float32:
+                errs[kernel] = max(errs[kernel], e)
+        report.append(row)
+    seen = {(r["kernel"], r["path"]) for r in report}
+    for path, kernels in (("validate", ("softmax_moments", "render_assemble", "tps_warp")),
+                          ("golden", ("softmax_moments", "render_assemble", "tps_warp")),
+                          ("evals", ("softmax_moments",))):
+        check(all((k, path) in seen for k in kernels),
+              f"path_kernels: {path} left no inputs of {kernels}: {sorted(seen)}")
+    emit("path_kernels", cases=report, tolerances={
+        "softmax_moments": "parts rtol 1e-5; mu, sigma atol 1e-5; gradient 1e-4 of max",
+        "render_assemble": "atol 1e-5 * max|plain output|; backward kernel vs closed form "
+                           "1e-5 of max, bf16 d_app rtol 2^-7",
+        "tps_warp": "f32 1e-4; bf16 2^-8 + 1e-4 against the f32 plain version cast once"})
+    return errs
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--baseline", type=Path, default=None,
@@ -1552,7 +2066,23 @@ def main() -> int:
     zeros_launches = phase_train_zeros()
     phase_train_parity()
     phase_train_loop()
+    paths = {}
+    with recording("evals"):
+        paths["evals"] = phase_evals(cfg, served, smi)
+    with recording("export"):
+        paths["export"] = phase_export(cfg, served, smi)
+    with recording("golden"):
+        paths["golden"] = phase_golden(smi)
+    with tempfile.TemporaryDirectory() as run_dir:
+        with recording("validate"):
+            paths["validate"] = phase_validate(run_dir, smi)
+        with recording("cli"):
+            paths["cli"] = phase_cli(run_dir, smi)
+    for name, e in phase_path_kernels().items():
+        errs[name] = max(errs[name], e)
     kernels = phase_timing(cfg, served, trained, zeros_launches, errs, smi)
+    for row in kernels:
+        row["launches_by_path"] = {path: counts[row["name"]] for path, counts in paths.items()}
     phase_tps_wide(smi)
     phase_profile(served, trained)
     print(smi, flush=True)

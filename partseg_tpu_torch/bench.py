@@ -8,19 +8,26 @@ Runs the config's training period (``augment.warp_every`` sub-steps, the
 first one TPS-warped) at the given batch on device-resident random
 images, with seeded random weights and the port's VGG (``vgg_mode`` says
 which), and prints one JSON line. The time is taken by CUDA events
-between synchronisations, after warm-up periods.
+between synchronisations, after warm-up periods. ``host_ms_per_period``
+is the host's time to issue one period onto an idle card (each period
+started after a synchronisation; median of ``HOST_PERIODS``): while it is
+below ``period_ms`` the card, not the host, sets the rate.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import statistics
+import time
 
 import torch
 
 from partseg_tpu_torch.configs import train_config
 from partseg_tpu_torch.models.partnet import PartNet, init_weights
 from partseg_tpu_torch.train import build_perceptual, create_state, make_train_period
+
+HOST_PERIODS = 10
 
 
 def build_trainer(cfg, batch: int, seed: int = 0, device: str = "cuda"):
@@ -55,11 +62,20 @@ def main(batch: int = 128, steps: int = 20, warmup: int = 3, config: str = "spee
     end.record()
     torch.cuda.synchronize()
     seconds = start.elapsed_time(end) / 1e3
+    host = []
+    for _ in range(HOST_PERIODS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = period(state, batches, cfg.seed)
+        host.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
     images = batch * cfg.augment.warp_every * steps
     result = {
         "metric": "train_throughput_128px",
         "value": images / seconds,
         "unit": "img/s/chip",
+        "period_ms": seconds * 1e3 / steps,
+        "host_ms_per_period": statistics.median(host),
         "vgg_mode": perceptual.vgg_mode,
         "config": config,
         "backend": "cuda",

@@ -26,10 +26,12 @@ import numpy as np
 
 def batch_indices(n: int, batch_size: int, *, shuffle: bool = True, seed: int = 0,
                   process_index: int = 0, process_count: int = 1, start_batch: int = 0,
-                  num_epochs: int | None = None) -> Iterator[np.ndarray]:
+                  num_epochs: int | None = None,
+                  drop_remainder: bool = True) -> Iterator[np.ndarray]:
     """The dataset indices of each batch, from batch #start_batch on;
-    endless unless ``num_epochs`` bounds the stream (a last partial batch
-    is dropped)."""
+    endless unless ``num_epochs`` bounds the stream. A bounded stream's
+    last partial batch is dropped, or with ``drop_remainder=False``
+    yielded short (an eval must score the whole split)."""
     idxs = np.arange(n)[process_index::process_count]
     n_shard = len(idxs)
     if n_shard == 0:
@@ -53,6 +55,8 @@ def batch_indices(n: int, batch_size: int, *, shuffle: bool = True, seed: int = 
                 offset = 0
         pos += batch_size
         yield np.asarray(sel)
+    if not drop_remainder and pos < end:
+        yield np.asarray(order[offset:offset + end - pos])
 
 
 def make_loader(
@@ -67,6 +71,7 @@ def make_loader(
     process_count: int = 1,
     backend: str = "grain",
     start_batch: int = 0,
+    drop_remainder: bool = True,
 ) -> Iterator[dict]:
     """Wrap a dataset into a batched iterator of dicts of stacked numpy
     arrays. ``batch_size`` is the per-process batch.
@@ -77,6 +82,8 @@ def make_loader(
     ``start_batch`` seeks: the first batch is batch #start_batch of the
     start_batch=0 stream. The train loop takes one batch per
     ``data_echo`` steps, so its resume passes start_step // data_echo.
+    ``drop_remainder=False`` (with ``num_epochs``) yields the last partial
+    batch too, as the eval protocols need.
     """
     if backend == "native":
         if num_epochs is not None:
@@ -91,7 +98,8 @@ def make_loader(
         )
     batches = batch_indices(len(dataset), batch_size, shuffle=shuffle, seed=seed,
                             process_index=process_index, process_count=process_count,
-                            start_batch=start_batch, num_epochs=num_epochs)
+                            start_batch=start_batch, num_epochs=num_epochs,
+                            drop_remainder=drop_remainder)
     return _indexed_batches(dataset, batches, max(num_workers, 1))
 
 

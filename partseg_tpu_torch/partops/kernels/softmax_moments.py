@@ -7,12 +7,25 @@ and writes the part distributions and the raw moments (E[y], E[x], E[y²],
 E[yx], E[x²]) per (b, k); μ and Σ are formed here with the same raw-moment
 formula as ``moments_from_raw``.
 
-``softmax_moments`` is an autograd Function. Its forward launches the
-kernel on a CUDA tensor (or raises) and runs the plain version
-(``spatial_softmax`` + ``soft_argmax_moments``) on a CPU tensor. Its
-backward is the closed form of the JAX ``custom_vjp`` (``_bwd``) in plain
-PyTorch, the same code on both devices: the TPU package has no backward
-kernel either (its backward is jnp, which XLA fuses).
+The forward is the registered op ``partseg::softmax_moments``, so eager
+calls and ``torch.export`` take one path: an exported program holds the
+op, not its plain version, and running it launches the kernel. Its CUDA
+implementation launches the kernel (or raises); its CPU implementation is
+the plain version (``spatial_softmax`` + ``soft_argmax_moments``); its
+fake implementation gives the output shapes for a symbolic batch. The CUDA
+and CPU implementations both reject logits the kernel does not take. The op
+is defined with ``torch.library.Library`` rather than the
+``torch.library.custom_op`` decorator, which wraps each implementation in
+``torch._dynamo.disable`` and so imports ``torch._dynamo`` at a process's
+first call (2.4 s on a CPU host); this definition adds about 50 ms to the
+module's import on the H100's host instead. The logits go to the op as
+they are, the strided foreground slice of [B, H, W, K+1] included: the
+kernel reads the pixel stride ``ld`` from the strides, in eager and
+exported runs alike, so no copy is made. Its gradient, attached with
+``register_autograd``, is the closed form of the JAX ``custom_vjp``
+(``_bwd``) in plain PyTorch, the same code on both devices: the TPU
+package has no backward kernel either (its backward is jnp, which XLA
+fuses).
 """
 
 from __future__ import annotations
@@ -58,15 +71,38 @@ def _check(logits: torch.Tensor) -> int:
     return ld
 
 
-def _launch(logits: torch.Tensor, ld: int):
+_LIB = torch.library.Library("partseg", "DEF")     # lives as long as the module
+_LIB.define("softmax_moments(Tensor logits) -> (Tensor, Tensor, Tensor)")
+
+
+def _softmax_moments_cuda(logits: torch.Tensor):
+    """The kernel: (parts, mu, sigma) of logits laid out as ``_check`` says."""
+    ld = _check(logits)
     b, h, w, k = logits.shape
     parts = torch.empty((b, h, w, k), device=logits.device, dtype=torch.float32)
     raw = torch.empty((b, k, 5), device=logits.device, dtype=torch.float32)
     _build.launch("partseg_softmax_moments_f32", logits.device,
                   logits.data_ptr(), parts.data_ptr(), raw.data_ptr(), b, h, w, k, ld)
     softmax_moments.launches += 1
-    mu, sigma = moments_from_raw(raw)
-    return parts, mu, sigma
+    return (parts, *moments_from_raw(raw))
+
+
+def _softmax_moments_cpu(logits: torch.Tensor):
+    """The plain version, on the logits the kernel would take."""
+    _check(logits)
+    return softmax_moments_plain(logits)
+
+
+_LIB.impl("softmax_moments", _softmax_moments_cuda, "CUDA")
+_LIB.impl("softmax_moments", _softmax_moments_cpu, "CPU")
+
+
+@torch.library.register_fake("partseg::softmax_moments", lib=_LIB)
+def _softmax_moments_fake(logits):
+    b, h, w, k = logits.shape
+    f32 = dict(dtype=torch.float32)
+    return (logits.new_empty((b, h, w, k), **f32), logits.new_empty((b, k, 2), **f32),
+            logits.new_empty((b, k, 2, 2), **f32))
 
 
 def softmax_moments_vjp(parts, mu, g_parts, g_mu, g_sigma):
@@ -93,33 +129,29 @@ def softmax_moments_vjp(parts, mu, g_parts, g_mu, g_sigma):
     return (pf * (g_p - inner)).reshape(b, h, w, k)
 
 
-class _SoftmaxMoments(torch.autograd.Function):
+def _setup_context(ctx, inputs, output):
+    parts, mu, _ = output
+    ctx.set_materialize_grads(False)
+    ctx.save_for_backward(parts, mu)
 
-    @staticmethod
-    def forward(ctx, logits, ld):
-        if logits.device.type == "cpu":
-            parts, mu, sigma = softmax_moments_plain(logits)
-        else:
-            parts, mu, sigma = _launch(logits, ld)
-        ctx.set_materialize_grads(False)
-        ctx.save_for_backward(parts, mu)
-        return parts, mu, sigma
 
-    @staticmethod
-    def backward(ctx, g_parts, g_mu, g_sigma):
-        parts, mu = ctx.saved_tensors
-        return softmax_moments_vjp(parts, mu, g_parts, g_mu, g_sigma), None
+def _backward(ctx, g_parts, g_mu, g_sigma):
+    parts, mu = ctx.saved_tensors
+    return softmax_moments_vjp(parts, mu, g_parts, g_mu, g_sigma)
+
+
+torch.library.register_autograd("partseg::softmax_moments", _backward,
+                                setup_context=_setup_context, lib=_LIB)
 
 
 def softmax_moments(logits: torch.Tensor):
     """logits [B, H, W, K] f32 → (parts [B, H, W, K] f32, mu [B, K, 2] f32,
     sigma [B, K, 2, 2] f32); the same numbers as spatial_softmax +
     soft_argmax_moments up to the order of the f32 sums. Differentiable
-    in the logits (the strided foreground slice too)."""
-    ld = _check(logits)
-    if logits.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"softmax_moments runs on CPU or CUDA, got {logits.device}")
-    return _SoftmaxMoments.apply(logits, ld)
+    in the logits (the strided foreground slice too). Calls the op
+    ``torch.ops.partseg.softmax_moments``, whose CPU and CUDA
+    implementations validate the logits as ``_check`` says."""
+    return torch.ops.partseg.softmax_moments(logits)
 
 
 softmax_moments.launches = 0

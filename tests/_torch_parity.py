@@ -24,6 +24,26 @@ from partseg_tpu_torch.models.partnet import PartNet, PartNetConfig
 TINY = dict(n_parts=4, img_size=32, features=16, depth=2, app_features=8,
             decoder_scales=2, decoder_features=(16, 8))
 
+# A config file (``load_config`` runs its get_config()) for CLI tests: the
+# synthetic preset at 16 px, f32, two steps, trained at decoder_out_size 8.
+TINY_TRAIN_CONFIG = '''\
+import dataclasses
+
+import torch
+
+from partseg_tpu_torch.train.config import apply_overrides, load_config
+
+
+def get_config():
+    cfg = apply_overrides(load_config("synthetic"), [
+        "model.img_size=16", "model.features=16", "model.depth=1", "model.app_features=8",
+        "model.decoder_scales=2", "model.decoder_features=(16, 8)", "model.decoder_out_size=8",
+        "loss.vgg_layers=('relu1_2',)", "loss.vgg_trim_blocks=1", "global_batch=8",
+        "dataset_kwargs=(('size', 16), ('n_blobs', 3), ('n_examples', 20))", "steps=2",
+        "log_every=1", "image_log_every=0"])
+    return cfg.replace(model=dataclasses.replace(cfg.model, dtype=torch.float32))
+'''
+
 
 def images(seed: int, b: int, size: int) -> np.ndarray:
     return np.random.default_rng(seed).uniform(0, 1, (b, size, size, 3)).astype(np.float32)

@@ -29,7 +29,7 @@ import pytest
 import torch
 
 from partseg_tpu_torch.augment import TPSSampler
-from partseg_tpu_torch.evals import make_infer_fn, transfer_batch
+from partseg_tpu_torch.evals import export_infer, load_exported, make_infer_fn, transfer_batch
 from partseg_tpu_torch.models.partnet import PartNet, PartNetConfig, init_weights
 from partseg_tpu_torch.partops import bilinear_sample
 from partseg_tpu_torch.partops.kernels import (
@@ -549,3 +549,50 @@ def test_train_period_on_card_matches_cpu(cuda):
         out[str(dev)] = {k: v.item() for k, v in m.items()}
     for k, v in out["cpu"].items():
         assert abs(out["cuda"][k] - v) <= 1e-4 * max(abs(v), 1e-3), k
+
+
+def test_softmax_moments_op_launches_the_kernel(cuda):
+    """The registered op, called directly on the strided foreground slice,
+    launches the kernel and matches the plain version."""
+    fg = _logits(9, 3, 32, 10).to(cuda)[..., :10]
+    before = softmax_moments.launches
+    got = torch.ops.partseg.softmax_moments(fg)
+    torch.cuda.synchronize()
+    assert softmax_moments.launches == before + 1
+    want = softmax_moments_plain(fg)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-30)
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-5)
+    torch.testing.assert_close(got[2], want[2], rtol=0, atol=1e-5)
+
+
+def test_exported_infer_on_the_card_runs_the_kernel(cuda, tmp_path):
+    """A program exported on the card (symbolic batch) holds the op, launches
+    the kernel once per call after save and load, equals the eager forward
+    on the card (the same ops: 1e-5 of scale, seg equal) and the CPU's plain
+    versions within 1e-4 of scale, as test_partnet_on_card_matches_cpu."""
+    cfg = PartNetConfig(n_parts=4, img_size=32, features=16, depth=2, app_features=8,
+                        decoder_scales=2, decoder_features=(16, 8), dtype=torch.float32)
+    cpu = init_weights(PartNet(cfg, device="cpu"), seed=0).eval()
+    gpu = PartNet(cfg)
+    gpu.load_state_dict(cpu.state_dict())
+    gpu.eval()
+    program = export_infer(gpu, 32)
+    names = [str(n.target) for n in program.graph.nodes if n.op == "call_function"]
+    assert names.count("partseg.softmax_moments.default") == 1
+    path = str(tmp_path / "infer.pt2")
+    torch.export.save(program, path)
+    served = load_exported(path).module()
+    for b in (1, 3):
+        x = torch.from_numpy(np.random.default_rng(b).uniform(0, 1, (b, 32, 32, 3))
+                             .astype(np.float32))
+        before = softmax_moments.launches
+        got = served(x.to(cuda))
+        torch.cuda.synchronize()
+        assert softmax_moments.launches == before + 1
+        eager, plain = make_infer_fn(gpu)(x.to(cuda)), make_infer_fn(cpu)(x)
+        torch.testing.assert_close(got["seg"], eager["seg"])
+        for key in ("logits", "heatmaps", "landmarks", "sigma"):
+            scale = plain[key].abs().max().item()
+            torch.testing.assert_close(got[key], eager[key], rtol=0, atol=1e-5 * scale, msg=key)
+            torch.testing.assert_close(got[key].cpu(), plain[key], rtol=0, atol=1e-4 * scale,
+                                       msg=key)

@@ -236,6 +236,26 @@ def test_loader_shards_cover_the_index_space_once():
     assert len(np.unique(seen.reshape(24, -1).round(5), axis=0)) == 24
 
 
+@pytest.mark.parametrize("drop_remainder", [False, True])
+def test_loader_remainder_matches_jax(drop_remainder):
+    """shuffle=False, one epoch: 22 examples at batch 8 give 8, 8 and a
+    6-example tail (dropped unless drop_remainder=False), batch for batch
+    JAX's make_loader (grain) on the same split."""
+    kw = dict(size=16, n_blobs=3, n_examples=22)
+    opts = dict(shuffle=False, num_epochs=1, drop_remainder=drop_remainder)
+    want = list(jax_make_loader(JSyntheticBlobs(**kw), 8, **opts))
+    got = list(make_loader(SyntheticBlobs(**kw), 8, **opts))
+    assert [len(b["image"]) for b in got] == ([8, 8] if drop_remainder else [8, 8, 6])
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.keys() == w.keys()
+        for k in w:
+            np.testing.assert_array_equal(g[k], np.asarray(w[k]), err_msg=k)
+    tail = [list(map(int, s)) for s in batch_indices(22, 8, shuffle=False, num_epochs=1,
+                                                     drop_remainder=drop_remainder)]
+    assert tail[-1] == (list(range(8, 16)) if drop_remainder else list(range(16, 22)))
+
+
 def test_prefetch_preserves_stream():
     ds = SyntheticBlobs(size=8, n_blobs=2, n_examples=16)
     plain = list(make_loader(ds, 4, shuffle=False, num_epochs=1))

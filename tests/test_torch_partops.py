@@ -191,7 +191,8 @@ def _imports(path: Path) -> set[str]:
 
 
 def test_port_imports_nothing_of_jax():
-    files = sorted((REPO / "partseg_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted((REPO / "partseg_tpu_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "tests" / "_torch_golden.py"]
     assert len(files) > 15
     banned = {"jax", "jaxlib", "flax", "chex", "optax", "orbax", "grain", "tensorflow",
               "partseg_tpu", "configs"}

@@ -42,6 +42,18 @@ Phases (one JSON line each; any failure exits non-zero):
                     the CLI killed at step 5 by fault injection (exit 42)
                     and resumed; device_data against streaming; 32 steps
                     with the default algorithms.
+     dp           — two ranks on the card (gloo; NCCL as well where the host
+                    has two cards): speed128 at full width, 128 per rank;
+                    one data-parallel step held to the one-process step run
+                    per shard and averaged; launches per period, img/s, the
+                    gradient all-reduce's ms; then the train CLI under
+                    torchrun killed at step 5 and resumed (bit for bit, one
+                    writer).
+     spatial      — two ranks splitting the image rows (gloo on cuda:0):
+                    bf16 collectives; a narrow f32 spatial step against the
+                    unsharded step; celeba256_spatial at full width through
+                    the loop (32 images per data shard): img/s, peak memory
+                    per rank, the halo and reduction ms of a step.
      evals        — the landmark and segmentation protocols with the
                     CelebA model (bf16, B = 256) over a 600-example
                     synthetic split, remainder batch included; card at f32
@@ -115,6 +127,7 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from partseg_tpu_torch.augment import (
+    AugmentConfig,
     ColorParams,
     PairDraws,
     TPSParams,
@@ -137,7 +150,7 @@ from partseg_tpu_torch.evals import (
 )
 from partseg_tpu_torch.evals.infer import render_overlay
 from partseg_tpu_torch.evals.transfer import full_size_decoder
-from partseg_tpu_torch.models.partnet import PartNet, init_weights
+from partseg_tpu_torch.models.partnet import PartNet, PartNetConfig, init_weights
 from partseg_tpu_torch.partops import bilinear_sample
 from partseg_tpu_torch.partops.kernels import (
     _build,
@@ -163,8 +176,8 @@ from partseg_tpu_torch.partops.kernels.tps_warp import (
 )
 from partseg_tpu_torch.partops.moments import precision_from_cov
 from partseg_tpu_torch.train import (
-    build_perceptual, compose_period, create_state, make_loss_fn, make_train_period,
-    make_train_step,
+    LossConfig, OptimConfig, TrainConfig, build_perceptual, compose_period, create_state,
+    make_loss_fn, make_train_period, make_train_step,
 )
 from partseg_tpu_torch.train.state import trainable, warmup_cosine
 
@@ -1445,6 +1458,415 @@ def phase_train_loop() -> dict:
     return out
 
 
+# ---------------------------------------------------------------- several ranks
+#
+# Phases dp and spatial start ranks with torchrun (this file again, with
+# --child; or the train CLI). The H100 host has shown one card: two ranks
+# then share cuda:0 and talk through gloo, which stages CUDA tensors through
+# the host (NCCL refuses two ranks on one GPU). With two or more cards, the
+# dp step runs once more with NCCL, one card per rank.
+
+DP_BATCH = 128            # speed128's per-card batch, per rank
+DP_START = 20             # a step with lr > 0 under speed128's warmup
+DP_PERIODS = 4            # timed periods per rank
+SPATIAL_BATCH = 32        # celeba256_spatial's batch per data shard (128 over 4)
+SPATIAL_STEPS = 3
+SPATIAL_START = 1         # lr 2e-5 in the narrow parity config
+
+
+def _torchrun(args: list, timeout: float, nproc: int = 2) -> subprocess.CompletedProcess:
+    """``torchrun --standalone --nproc_per_node=nproc ARGS`` from the repo
+    root in a session of its own, killed whole (workers too) at ``timeout``."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={nproc}", *args]
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        out, err = proc.communicate()
+        raise SmokeError(f"{' '.join(args[:3])} timed out after {timeout} s: {err[-3000:]}")
+    return subprocess.CompletedProcess(cmd, proc.returncode, out, err)
+
+
+def _child_init(backend: str) -> tuple[torch.device, int, int]:
+    """Join torchrun's process group: every rank on cuda:0 with gloo, or on
+    cuda:LOCAL_RANK with NCCL."""
+    import torch.distributed as dist
+
+    local = int(os.environ["LOCAL_RANK"])
+    dev = torch.device("cuda:0" if backend == "gloo" else f"cuda:{local}")
+    torch.cuda.set_device(dev)
+    kw = {"device_id": dev} if backend == "nccl" else {}
+    dist.init_process_group(backend, init_method="env://", **kw)
+    return dev, dist.get_rank(), dist.get_world_size()
+
+
+def child_dp(out_dir: Path, backend: str) -> None:
+    """One rank of phase dp: speed128 at full width, DP_BATCH per rank.
+      1. One data-parallel step from DP_START (deterministic algorithms),
+         and on rank 0 the port's one-process step run per shard from the
+         same weights and draws, its gradients and metrics averaged (each
+         shard rolls its own appearance for the swap term): the metrics
+         within 1e-4 relative, Adam's first moments (0.1 × the averaged
+         gradient) within 1e-4 of the largest, the parameters within 1e-4
+         of each tensor's largest, the train_parity bounds.
+      2. DP_PERIODS timed periods (default algorithms): the launches per
+         period, img/s of this rank, and the gradient all-reduce's ms."""
+    import torch.distributed as dist
+
+    from partseg_tpu_torch.dist import average, broadcast_parameters, make_mesh
+    from partseg_tpu_torch.train.loop import aug_ids
+    from partseg_tpu_torch.train.state import make_optimizer
+
+    dev, rank, world = _child_init(backend)
+    torch.use_deterministic_algorithms(True)
+    # The swap term on for the held step, so that each shard rolls its own
+    # appearance; the timed periods run the preset as it is.
+    cfg = train_config("speed128", ["loss.swap_weight=0.5"])
+    mesh = make_mesh()
+    gb = DP_BATCH * world
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    full = [torch.rand((gb, 128, 128, 3), generator=gen, device=dev) for _ in range(2)]
+    model = init_weights(PartNet(cfg.model, device="cpu"), seed=SEED).to(dev)
+    broadcast_parameters(model)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    perceptual = build_perceptual(cfg, dev)
+    sampler = cfg.augment.make_sampler()
+    seed = cfg.seed + 1
+
+    def shard(x, d):
+        return x[d * DP_BATCH:(d + 1) * DP_BATCH]
+
+    state = create_state(cfg, model, step=DP_START)
+    step = make_train_step(cfg, model, sampler, perceptual, warp_on=True, group=mesh.data_group)
+    reset_launch_counts()
+    with recording("dp"):
+        state, metrics = step(state, {"image": shard(full[0], rank),
+                                      "aug_id": aug_ids(DP_BATCH, rank, DP_START, 0, gb)}, seed)
+    torch.cuda.synchronize()
+    out = {"rank": rank, "world": world, "backend": backend, "device": str(dev),
+           "step_launches": launch_counts()}
+    if rank == 0:
+        ref = PartNet(cfg.model, device=dev)
+        ref.load_state_dict(start)
+        ref_state = create_state(cfg, ref, step=DP_START)
+        loss_fn = make_loss_fn(cfg, ref, sampler, perceptual, warp_on=True)
+        params = list(trainable(ref).values())
+        grads, shard_metrics = [torch.zeros_like(p) for p in params], []
+        for d in range(world):
+            draws = keyed_pair_draws(seed, DP_START, aug_ids(DP_BATCH, d, DP_START, 0, gb),
+                                     sampler, cfg.augment, dev)
+            loss, m = loss_fn({"image": shard(full[0], d)}, draws)
+            gs = torch.autograd.grad(loss, params, allow_unused=True)
+            grads = [a + (torch.zeros_like(a) if g is None else g) for a, g in zip(grads, gs)]
+            shard_metrics.append({k: v.detach() for k, v in m.items()})
+        grads = [g / world for g in grads]
+        want = {k: torch.stack([m[k] for m in shard_metrics]).mean() for k in shard_metrics[0]}
+        want["grad_norm"] = make_optimizer(cfg.optim).update(ref, grads, ref_state.opt_state)
+        metric_err = {k: abs(metrics[k].item() - v.item()) / max(abs(v.item()), 1e-30)
+                      for k, v in want.items()}
+        mu_scale = max(v.abs().max().item() for v in ref_state.opt_state.mu.values())
+        mu_err = max((state.opt_state.mu[k] - v).abs().max().item()
+                     for k, v in ref_state.opt_state.mu.items()) / mu_scale
+        param_err = max(_scaled_err(v, ref.state_dict()[k])
+                        for k, v in state.model.state_dict().items())
+        out.update(metric_rel_err=metric_err, mu_err_of_max=mu_err, param_err_of_max=param_err,
+                   loss=metrics["loss"].item(), swap_in_loss="swap" in metrics)
+        check(max(metric_err.values()) <= 1e-4 and mu_err <= 1e-4 and param_err <= 1e-4,
+              f"dp step against the per-shard steps averaged: metrics {metric_err}, "
+              f"moments {mu_err}, params {param_err}")
+        out["path_kernels"] = _check_path_inputs_f32()
+        del ref, ref_state
+    torch.use_deterministic_algorithms(False)
+    dist.barrier()
+
+    cfg = train_config("speed128")
+    period = make_train_period(cfg, model, sampler, perceptual, group=mesh.data_group)
+    batches = tuple({"image": shard(full[j], rank), "aug_id": aug_ids(DP_BATCH, rank, 0, j, gb)}
+                    for j in range(2))
+    for _ in range(2):
+        state, metrics = period(state, batches, seed)
+    torch.cuda.synchronize()
+    dist.barrier()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(DP_PERIODS):
+        state, metrics = period(state, batches, seed)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = launch_counts()
+    out["launches_per_period"] = {k: v / DP_PERIODS for k, v in counts.items()}
+    out["img_per_sec_this_rank"] = DP_PERIODS * 2 * DP_BATCH / dt
+    out["period_ms"] = dt / DP_PERIODS * 1e3
+    bufs = [torch.zeros_like(p) for p in trainable(model).values()] + [
+        torch.zeros((), device=dev) for _ in metrics]
+    times = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        average(bufs, mesh.data_group)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out["grad_allreduce_ms_per_step"] = statistics.median(times)
+    out["grad_allreduce_bytes"] = 4 * sum(b.numel() for b in bufs)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    out["final_metrics_finite"] = all(math.isfinite(v.item()) for v in metrics.values())
+    check(out["final_metrics_finite"], f"dp period metrics not finite on rank {rank}")
+    (out_dir / f"dp_{backend}_rank{rank}.json").write_text(json.dumps(out))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _check_path_inputs_f32() -> list:
+    """check_path_inputs with TF32 off, as the plain versions' f32 products
+    need (the smoke's other phases turn it off too)."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        return check_path_inputs()[0]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+
+def _log_records(run_dir: str) -> list:
+    path = Path(run_dir, "metrics.jsonl")
+    return [json.loads(line) for line in path.read_text().splitlines()] if path.exists() else []
+
+
+def phase_dp(smi: str) -> dict:
+    """Data parallel on the card: child_dp (2 ranks on cuda:0 with gloo, and
+    with NCCL on two cards where there are two), then the train CLI under
+    torchrun, speed128 at global_batch 2 × 128 with --deterministic: killed
+    by fault injection at step 5 (both ranks), resumed from the step-4
+    checkpoint. The resumed period at step 4 logs the same metrics as the
+    killed run's, bit for bit, and the killed run logged each step once
+    (one writer). Returns rank 0's launches per period."""
+    torch.cuda.empty_cache()
+    out = {"card": smi}
+    backends = ["gloo"] + (["nccl"] if torch.cuda.device_count() >= 2 else [])
+    with tempfile.TemporaryDirectory() as tmp:
+        for backend in backends:
+            t0 = time.perf_counter()
+            r = _torchrun([str(ROOT / "chip_smoke.py"), "--child", "dp", "--backend", backend,
+                           "--out", tmp], timeout=300)
+            check(r.returncode == 0, f"dp child ({backend}) exited {r.returncode}: "
+                                     f"{r.stdout[-2000:]} {r.stderr[-4000:]}")
+            ranks = [json.loads(Path(tmp, f"dp_{backend}_rank{i}.json").read_text())
+                     for i in range(2)]
+            out[backend] = {"wall_s": time.perf_counter() - t0, "ranks": ranks,
+                            "img_per_sec_card": sum(x["img_per_sec_this_rank"] for x in ranks)}
+            want = {k: v for k, v in TRAIN_LAUNCHES.items()}
+            for x in ranks:
+                check(x["launches_per_period"] == want,
+                      f"dp rank {x['rank']} launches per period {x['launches_per_period']}, "
+                      f"expected {want}")
+
+        run = os.path.join(tmp, "cli")
+        cli = ["-m", "partseg_tpu_torch.train.cli", "--config", "speed128", "--device", "cuda:0",
+               "--dist_backend", "gloo", "--deterministic", "--ckpt_dir", run, "--steps", "8",
+               "--set", f"global_batch={2 * DP_BATCH}", "dataset='synthetic'",
+               "dataset_kwargs=(('size',128),('n_examples',512))", "scan_groups=1",
+               "ckpt_every=4", "log_every=2", "image_log_every=4"]
+        t0 = time.perf_counter()
+        r1 = _torchrun(cli + ["fault_injection_step=5"], timeout=240)
+        killed = _log_records(run)
+        r2 = _torchrun(cli, timeout=240)
+        out["cli_wall_s"] = time.perf_counter() - t0
+        check(r1.returncode != 0 and r1.stdout.count("FAULT INJECTION") == 2,
+              f"fault injection: torchrun exited {r1.returncode}: {r1.stdout[-2000:]}")
+        check(r2.returncode == 0 and r2.stdout.count("restored checkpoint at step 4") == 2,
+              f"resume exited {r2.returncode}: {r2.stdout[-2000:]} {r2.stderr[-3000:]}")
+        check(r1.stdout.count("backend gloo, device cuda:0") == 2,
+              f"the CLI did not print each rank's backend and device: {r1.stdout[-2000:]}")
+        steps = [rec["step"] for rec in killed]
+        check(steps == [0, 2, 4], f"killed run logged steps {steps} (one writer: each once)")
+        resumed = [rec for rec in _log_records(run)[len(killed):]]
+        check([rec["step"] for rec in resumed] == [4, 6], f"resumed run logged {resumed}")
+        same = {k: resumed[0][k] == killed[2][k] for k in killed[2]
+                if k not in ("img_per_sec_per_chip", "time")}
+        check(all(same.values()), f"resumed step 4 differs from the killed run's: {same}")
+        out["cli"] = {"fault_rc": r1.returncode, "resume_rc": r2.returncode,
+                      "loss_step4": killed[2]["loss"],
+                      "img_per_sec_per_chip": [rec["img_per_sec_per_chip"] for rec in resumed],
+                      "resume": "bit for bit"}
+    gl = out["gloo"]["ranks"]
+    emit("dp", config="speed128", batch_per_rank=DP_BATCH, ranks=2, **out,
+         launches_per_period=[x["launches_per_period"] for x in gl],
+         grad_allreduce_ms_per_step=[x["grad_allreduce_ms_per_step"] for x in gl])
+    return gl[0]["launches_per_period"]
+
+
+def _narrow_spatial_config() -> TrainConfig:
+    """A narrow f32 config for the card's spatial parity (64 px, features
+    32, depth 2, K = 4, 3 decoder scales, VGG to relu2_2 so that a max pool
+    runs on the row shards, swap on), B = 2."""
+    return TrainConfig(
+        model=PartNetConfig(n_parts=4, img_size=64, features=32, depth=2, app_features=16,
+                            decoder_scales=3, decoder_features=(32, 16, 8), dtype=torch.float32),
+        augment=AugmentConfig(tps_grid=3),
+        loss=LossConfig(vgg_layers=("relu1_2", "relu2_2"), vgg_trim_blocks=2, swap_weight=0.5),
+        optim=OptimConfig(lr=2e-4, warmup_steps=10, decay_steps=100),
+        global_batch=2)
+
+
+def child_spatial(out_dir: Path) -> None:
+    """One rank of phase spatial (1 data × 2 space ranks on cuda:0, gloo):
+      1. gloo's all_reduce and all_gather of bf16 CUDA tensors;
+      2. the narrow f32 spatial step (TF32 off) from SPATIAL_START, and on
+         rank 0 the port's unsharded step from the same weights and draws:
+         loss rtol 2e-5, every parameter after the update atol 5e-5, the
+         gradients (Adam's first moments) within 1e-4 of the largest and
+         their norm within 1e-4 relative (PERF.md §2's gradient bound);
+      3. celeba256_spatial at full width through train(): SPATIAL_BATCH per
+         data shard, SPATIAL_STEPS steps on the synthetic dataset at 256 px;
+         its logged img/s, peak memory, launches and collectives; then one
+         step with TIMED on for the halo and reduction seconds."""
+    import torch.distributed as dist
+
+    from partseg_tpu_torch.dist import make_spatial_mesh
+    from partseg_tpu_torch.parallel import COLLECTIVES, TIMED, reset_collective_counts
+    from partseg_tpu_torch.parallel.spatial_train import make_spatial_train_step
+    from partseg_tpu_torch.train.loop import train
+
+    dev, rank, world = _child_init("gloo")
+    out = {"rank": rank, "device": str(dev)}
+    x = torch.full((4,), rank + 1.5, dtype=torch.bfloat16, device=dev)
+    dist.all_reduce(x)
+    parts = [torch.empty_like(x) for _ in range(world)]
+    dist.all_gather(parts, x * (rank + 1))
+    out["bf16_collectives"] = [x.tolist(), [p.tolist() for p in parts]]
+    check(x.tolist() == [4.0] * 4 and [p[0].item() for p in parts] == [4.0, 8.0],
+          f"gloo bf16 collectives on CUDA: {out['bf16_collectives']}")
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    cfg = _narrow_spatial_config()
+    mesh = make_spatial_mesh(2)
+    model = init_weights(PartNet(cfg.model, device="cpu"), seed=SEED).to(dev)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    perceptual = build_perceptual(cfg, dev)
+    sampler = cfg.augment.make_sampler()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    images = torch.rand((2, 64, 64, 3), generator=gen, device=dev)
+    aug = np.arange(2)
+    draws = keyed_pair_draws(cfg.seed + 1, SPATIAL_START, aug, sampler, cfg.augment, dev)
+    state = create_state(cfg, model, step=SPATIAL_START)
+    step = make_spatial_train_step(cfg, model, sampler, perceptual, mesh)
+    rows = images[:, 32 * mesh.space_index:32 * (mesh.space_index + 1)].contiguous()
+    state, metrics = step(state, {"image": rows, "aug_id": aug}, draws=draws)
+    if rank == 0:
+        ref = PartNet(cfg.model, device=dev)
+        ref.load_state_dict(start)
+        ref_state, want = make_train_step(cfg, ref, sampler, perceptual)(
+            create_state(cfg, ref, step=SPATIAL_START), {"image": images}, draws=draws)
+        mu_scale = max(v.abs().max().item() for v in ref_state.opt_state.mu.values())
+        err = {
+            "loss_rel": abs(metrics["loss"].item() / want["loss"].item() - 1),
+            "grad_norm_rel": abs(metrics["grad_norm"].item() / want["grad_norm"].item() - 1),
+            "param_max_abs": max((v - ref_state.model.state_dict()[k]).abs().max().item()
+                                 for k, v in state.model.state_dict().items()),
+            "mu_err_of_max": max((state.opt_state.mu[k] - v).abs().max().item()
+                                 for k, v in ref_state.opt_state.mu.items()) / mu_scale}
+        out["parity"] = err
+        check(err["loss_rel"] <= 2e-5 and err["param_max_abs"] <= 5e-5
+              and err["mu_err_of_max"] <= 1e-4 and err["grad_norm_rel"] <= 1e-4,
+              f"spatial step against the unsharded step on the card: {err}")
+        del ref, ref_state
+    del model, state, perceptual
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    dist.barrier()
+
+    run = str(out_dir / "spatial_run")
+    cfg = train_config("celeba256_spatial", [
+        f"global_batch={SPATIAL_BATCH}", "dataset='synthetic'",
+        "dataset_kwargs=(('size',256),('n_examples',64))", f"steps={SPATIAL_STEPS}",
+        "log_every=1", "image_log_every=0", "ckpt_every=1000", f"ckpt_dir={run!r}"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    reset_collective_counts()
+    t0 = time.perf_counter()
+    with recording("spatial"):
+        state = train(cfg, device=dev)
+    torch.cuda.synchronize()
+    out["loop_wall_s"] = time.perf_counter() - t0
+    out["launches"] = launch_counts()
+    out["collectives_per_step"] = {k: v / SPATIAL_STEPS for k, v in COLLECTIVES.items()}
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    if rank == 0:
+        log = _log_records(run)
+        out["logged"] = {rec["step"]: {"loss": rec["loss"],
+                                       "img_per_sec_per_chip": rec["img_per_sec_per_chip"]}
+                         for rec in log}
+        check([rec["step"] for rec in log] == list(range(SPATIAL_STEPS))
+              and all(math.isfinite(rec["loss"]) for rec in log),
+              f"celeba256_spatial logged {log}")
+    check(out["launches"]["tps_warp"] == SPATIAL_STEPS,
+          f"celeba256_spatial launches {out['launches']} over {SPATIAL_STEPS} steps")
+
+    # One more step, timed whole, then with each collective timed.
+    mesh = make_spatial_mesh(2)
+    perceptual = build_perceptual(cfg, dev)
+    sampler = cfg.augment.make_sampler()
+    step = make_spatial_train_step(cfg, state.model, sampler, perceptual, mesh)
+    h = cfg.model.img_size // 2
+    rows = torch.rand((SPATIAL_BATCH, h, cfg.model.img_size, 3), generator=gen, device=dev)
+    batch = {"image": rows, "aug_id": np.arange(SPATIAL_BATCH)}
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = step(state, batch, cfg.seed + 1)
+    torch.cuda.synchronize()
+    out["step_ms"] = (time.perf_counter() - t0) * 1e3
+    reset_collective_counts()
+    TIMED["on"] = True
+    dist.barrier()
+    t0 = time.perf_counter()
+    state, metrics = step(state, batch, cfg.seed + 1)
+    torch.cuda.synchronize()
+    TIMED["on"] = False
+    out["timed_step_ms"] = (time.perf_counter() - t0) * 1e3
+    out["halo_ms_per_step"] = TIMED["halo"] * 1e3
+    out["reduce_ms_per_step"] = TIMED["reduce"] * 1e3
+    out["collectives_timed_step"] = dict(COLLECTIVES)
+    check(all(math.isfinite(v.item()) for v in metrics.values()),
+          f"celeba256_spatial step metrics not finite on rank {rank}")
+    if rank == 0:
+        out["path_kernels"] = _check_path_inputs_f32()
+    (out_dir / f"spatial_rank{rank}.json").write_text(json.dumps(out))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_spatial(smi: str) -> dict:
+    """Spatial sharding on the card: child_spatial on 2 ranks sharing cuda:0
+    (gloo). Returns rank 0's launches over the celeba256_spatial loop."""
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        r = _torchrun([str(ROOT / "chip_smoke.py"), "--child", "spatial", "--out", tmp],
+                      timeout=420)
+        check(r.returncode == 0, f"spatial child exited {r.returncode}: {r.stdout[-2000:]} "
+                                 f"{r.stderr[-4000:]}")
+        ranks = [json.loads(Path(tmp, f"spatial_rank{i}.json").read_text()) for i in range(2)]
+    emit("spatial", config="celeba256_spatial", batch_per_data_shard=SPATIAL_BATCH,
+         ranks="1 data x 2 space on cuda:0 (gloo)", steps=SPATIAL_STEPS, card=smi,
+         wall_s=time.perf_counter() - t0, parity=ranks[0]["parity"],
+         bf16_collectives=ranks[0]["bf16_collectives"],
+         logged=ranks[0]["logged"], peak_bytes=[x["peak_bytes"] for x in ranks],
+         step_ms=[x["step_ms"] for x in ranks],
+         halo_ms_per_step=[x["halo_ms_per_step"] for x in ranks],
+         reduce_ms_per_step=[x["reduce_ms_per_step"] for x in ranks],
+         timed_step_ms=[x["timed_step_ms"] for x in ranks],
+         collectives_per_step=ranks[0]["collectives_per_step"],
+         launches=[x["launches"] for x in ranks], path_kernels=ranks[0]["path_kernels"],
+         loop_wall_s=[x["loop_wall_s"] for x in ranks])
+    return ranks[0]["launches"]
+
+
 def phase_turns(cfg, baseline: Path, smi: str) -> None:
     """The baseline checkout's kernels against this checkout's: each C
     entry point of both libraries called on the same inputs (outputs and
@@ -1966,6 +2388,27 @@ def phase_path_kernels() -> dict:
     backward kernel against its closed form, 1e-5 of each cotangent's
     largest (a bf16 d_app within one bf16 ulp, rtol 2⁻⁷). Repeats give the
     same bits."""
+    report, errs = check_path_inputs()
+    seen = {(r["kernel"], r["path"]) for r in report}
+    for path, kernels in (("validate", ("softmax_moments", "render_assemble", "tps_warp")),
+                          ("golden", ("softmax_moments", "render_assemble", "tps_warp")),
+                          ("evals", ("softmax_moments",))):
+        check(all((k, path) in seen for k in kernels),
+              f"path_kernels: {path} left no inputs of {kernels}: {sorted(seen)}")
+    emit("path_kernels", cases=report, tolerances=PATH_TOLERANCES)
+    return errs
+
+
+PATH_TOLERANCES = {
+    "softmax_moments": "parts rtol 1e-5; mu, sigma atol 1e-5; gradient 1e-4 of max",
+    "render_assemble": "atol 1e-5 * max|plain output|; backward kernel vs closed form "
+                       "1e-5 of max, bf16 d_app rtol 2^-7",
+    "tps_warp": "f32 1e-4; bf16 2^-8 + 1e-4 against the f32 plain version cast once"}
+
+
+def check_path_inputs() -> tuple[list, dict]:
+    """phase path_kernels' checks on every input ``recording`` kept in this
+    process; returns (one row per case, each kernel's largest f32 error)."""
     report = []
     errs = {"softmax_moments": 0.0, "render_assemble": 0.0, "tps_warp": 0.0}
     for i, ((kernel, *sig), (path, grad, inputs)) in enumerate(PATH_INPUTS.items()):
@@ -2029,25 +2472,24 @@ def phase_path_kernels() -> dict:
             if im.dtype == torch.float32:
                 errs[kernel] = max(errs[kernel], e)
         report.append(row)
-    seen = {(r["kernel"], r["path"]) for r in report}
-    for path, kernels in (("validate", ("softmax_moments", "render_assemble", "tps_warp")),
-                          ("golden", ("softmax_moments", "render_assemble", "tps_warp")),
-                          ("evals", ("softmax_moments",))):
-        check(all((k, path) in seen for k in kernels),
-              f"path_kernels: {path} left no inputs of {kernels}: {sorted(seen)}")
-    emit("path_kernels", cases=report, tolerances={
-        "softmax_moments": "parts rtol 1e-5; mu, sigma atol 1e-5; gradient 1e-4 of max",
-        "render_assemble": "atol 1e-5 * max|plain output|; backward kernel vs closed form "
-                           "1e-5 of max, bf16 d_app rtol 2^-7",
-        "tps_warp": "f32 1e-4; bf16 2^-8 + 1e-4 against the f32 plain version cast once"})
-    return errs
+    return report, errs
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--baseline", type=Path, default=None,
                         help="another checkout of the repo: time its kernels against these")
+    parser.add_argument("--child", choices=("dp", "spatial"), default=None,
+                        help="run one rank of phase dp or spatial (torchrun starts them)")
+    parser.add_argument("--backend", default="gloo", help="--child dp: gloo or nccl")
+    parser.add_argument("--out", type=Path, default=None, help="--child: where ranks report")
     args = parser.parse_args()
+    if args.child == "dp":
+        child_dp(args.out, args.backend)
+        return 0
+    if args.child == "spatial":
+        child_spatial(args.out)
+        return 0
     smi = phase_device()
     phase_build()
     cfg = model_config("celeba", use_pallas=True)
@@ -2066,7 +2508,7 @@ def main() -> int:
     zeros_launches = phase_train_zeros()
     phase_train_parity()
     phase_train_loop()
-    paths = {}
+    paths = {"dp": phase_dp(smi), "spatial": phase_spatial(smi)}
     with recording("evals"):
         paths["evals"] = phase_evals(cfg, served, smi)
     with recording("export"):

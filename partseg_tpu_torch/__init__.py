@@ -12,7 +12,10 @@ Layering (mirrors partseg_tpu):
   models/   — hourglass encoders + image decoder (nn.Module)
   augment/  — TPS sampler, colour jitter, paired augmentation
   losses/   — VGG perceptual and TPS equivariance losses
-  train/    — configs, optax-semantics optimizer, the train step and period
+  train/    — configs, optax-semantics optimizer, the train step and period,
+              the loop, checkpoints, metrics and the CLI
+  dist/     — the process group, the (data, space) mesh, gradient averaging
+  parallel/ — spatial sharding: the image rows of a data shard over ranks
   evals/    — serving entry points: make_infer_fn, infer_image, transfer
   configs   — model and train presets; convert — Flax params → state_dict
   bench     — train-step throughput on the card

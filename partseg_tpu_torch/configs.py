@@ -37,8 +37,8 @@ TRAIN_PRESETS = {
         dataset="celeba_wild", global_batch=256, steps=200_000, ckpt_dir="logs/celeba_wild",
     ),
     # configs/celeba256_spatial.py: 256 px with image rows sharded over
-    # two devices (space_shards = 2); train() refuses it until the port
-    # has spatial sharding.
+    # two ranks (space_shards = 2; parallel/spatial_train.py): train it under
+    # torchrun with an even number of ranks.
     "celeba256_spatial": TrainConfig(
         model=PartNetConfig(n_parts=10, img_size=256, features=128, depth=4,
                             app_features=128, decoder_scales=4),

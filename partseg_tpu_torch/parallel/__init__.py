@@ -1,0 +1,28 @@
+"""Spatial sharding (image rows over a space group of ranks), the port's
+counterpart of partseg_tpu/parallel."""
+
+from partseg_tpu_torch.parallel.spatial import (
+    COLLECTIVES,
+    TIMED,
+    group_sum,
+    halo_exchange,
+    reset_collective_counts,
+    sharded_pool_appearance,
+    sharded_render_gaussians,
+    sharded_soft_argmax_moments,
+    sharded_spatial_conv,
+    sharded_spatial_softmax,
+)
+
+__all__ = [
+    "COLLECTIVES",
+    "TIMED",
+    "group_sum",
+    "halo_exchange",
+    "reset_collective_counts",
+    "sharded_pool_appearance",
+    "sharded_render_gaussians",
+    "sharded_soft_argmax_moments",
+    "sharded_spatial_conv",
+    "sharded_spatial_softmax",
+]

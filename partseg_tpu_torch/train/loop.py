@@ -6,8 +6,17 @@ runs the ``augment.warp_every`` period (and ``data_echo``, ``scan_groups``)
 schedule, keys every sample's draws by its global id (``aug_id``), logs
 metrics with the throughput, writes checkpoints at group boundaries, can
 trace a window of steps with ``torch.profiler``, and can kill itself at a
-given step to test resume. One process, one device: the spatially
-sharded path (``space_shards > 1``) is not ported yet.
+given step to test resume.
+
+Several processes (``torchrun``, or the CLI's ``--coordinator``) train
+one model on a (data, space) mesh (``dist/mesh.py``), one rank per
+process and device. Each rank takes ``global_batch / n_data`` examples per
+step from its data shard of the loader, keys their draws by their global
+ids (the same under any sharding), and trains either data-parallel
+(``space_shards`` = 1: gradients averaged over the data ranks) or with
+its data shard's image rows split over ``space_shards`` ranks
+(``parallel/spatial_train.py``). Only rank 0 writes metrics, image grids
+and checkpoints; every rank restores the same checkpoint.
 """
 
 from __future__ import annotations
@@ -19,9 +28,11 @@ from typing import Iterator
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from partseg_tpu_torch.data import build_dataset, make_loader, prefetch
 from partseg_tpu_torch.device import default_device
+from partseg_tpu_torch.dist.mesh import Mesh, broadcast_parameters, make_spatial_mesh
 from partseg_tpu_torch.models.partnet import PartNet, init_weights
 from partseg_tpu_torch.train.checkpoint import CheckpointManager
 from partseg_tpu_torch.train.config import TrainConfig
@@ -35,18 +46,27 @@ from partseg_tpu_torch.train.step import (
 )
 
 
-def build_step_fn(cfg: TrainConfig, model: PartNet, sampler, perceptual):
+def build_step_fn(cfg: TrainConfig, model: PartNet, sampler, perceptual,
+                  mesh: Mesh | None = None):
     """fn(state, batches, seed) → (state, metrics) for one dispatch of the
     loop: a period of ``augment.warp_every`` sub-steps (a tuple of as many
     batches; sub-step 0 warps), or with ``scan_groups > 1`` a list of that
-    many such tuples, each applied ``data_echo`` times (compose_scan)."""
-    if cfg.augment.warp_every <= 1:
-        step = make_train_step(cfg, model, sampler, perceptual, warp_on=True)
+    many such tuples, each applied ``data_echo`` times (compose_scan).
+    On a mesh with a space axis it is the spatially sharded step; on one of
+    several data ranks, the data-parallel step; else the plain step."""
+    mesh = mesh or Mesh(1, 0, 1)
+    if mesh.space > 1:
+        from partseg_tpu_torch.parallel.spatial_train import build_spatial_step_fn
+
+        body = build_spatial_step_fn(cfg, model, sampler, perceptual, mesh)
+    elif cfg.augment.warp_every <= 1:
+        step = make_train_step(cfg, model, sampler, perceptual, warp_on=True,
+                               group=mesh.data_group)
 
         def body(state, batches, seed):
             return step(state, batches[0], seed)
     else:
-        body = make_train_period(cfg, model, sampler, perceptual)
+        body = make_train_period(cfg, model, sampler, perceptual, group=mesh.data_group)
     if cfg.scan_groups > 1:
         return compose_scan(body, cfg.scan_groups, cfg.data_echo)
     return body
@@ -104,19 +124,33 @@ def _check_schedule(cfg: TrainConfig, start_step: int, period: int) -> tuple[int
     return group, (period if scan == 1 else span)
 
 
+def aug_ids(per_rank: int, data_index: int, fetch_step: int, sub: int,
+            global_batch: int) -> np.ndarray:
+    """The global sample ids of a rank's batch: its data shard's slot in the
+    global batch of sub-step ``sub`` of the fetch group at ``fetch_step``."""
+    return (np.arange(per_rank, dtype=np.int64) + data_index * per_rank
+            + (fetch_step + sub) * global_batch)
+
+
 def train(cfg: TrainConfig, *, data_iter: Iterator[dict] | None = None, restore: bool = True,
-          device: str | torch.device | None = None, debug_nans: bool = False) -> TrainState:
+          device: str | torch.device | None = None, debug_nans: bool = False,
+          mesh: Mesh | None = None) -> TrainState:
     """Run training on ``device`` (the CUDA card unless given). Returns the
     final TrainState. ``data_iter`` replaces the config's dataset (the
-    caller then owns the resume seek); ``debug_nans`` turns on autograd's
-    anomaly detection and fails on a non-finite loss."""
-    if cfg.space_shards > 1:
-        raise NotImplementedError(
-            f"space_shards={cfg.space_shards}: spatially sharded training is not ported "
-            "yet (ROADMAP Queue 1 item 6)")
+    caller then owns the resume seek and the rank's shard); ``debug_nans``
+    turns on autograd's anomaly detection and fails on a non-finite loss.
+    ``mesh`` defaults to every rank of the process group (one rank without
+    one) with ``space_shards`` ranks to a data shard's rows."""
     dev = default_device(device)
-    batch = cfg.global_batch            # one process on one device
+    if mesh is None:
+        mesh = make_spatial_mesh(cfg.space_shards)
+    if cfg.global_batch % mesh.n_data:
+        raise ValueError(
+            f"global_batch {cfg.global_batch} not divisible by {mesh.n_data} data shards")
+    batch = cfg.global_batch // mesh.n_data      # this rank's share of a step
+    lead = mesh.rank == 0                         # the one writer
     model = init_weights(PartNet(cfg.model, device="cpu"), seed=cfg.seed).to(dev)
+    broadcast_parameters(model)
     sampler = cfg.augment.make_sampler()
     perceptual = build_perceptual(cfg, dev)
     print(f"[train] vgg_mode={perceptual.vgg_mode}", flush=True)
@@ -134,6 +168,12 @@ def train(cfg: TrainConfig, *, data_iter: Iterator[dict] | None = None, restore:
     group, stride = _check_schedule(cfg, start_step, period)
     table = None
     if cfg.device_data:
+        if mesh.space > 1:
+            raise ValueError(
+                "device_data is not supported with spatial sharding: the "
+                "image must enter the step already row-sharded, but the "
+                "device table gather produces full-height rows per shard"
+            )
         if data_iter is not None:
             raise ValueError(
                 "device_data builds its own index-carrying loader; pass "
@@ -152,31 +192,54 @@ def train(cfg: TrainConfig, *, data_iter: Iterator[dict] | None = None, restore:
         # One batch per data_echo steps: seeking to start_step // data_echo
         # reproduces the uninterrupted batch sequence (start_step is
         # group-aligned, checked above).
+        # The rank's data shard of the examples (every space rank of a data
+        # shard reads the same batches).
         data_iter = prefetch(make_loader(
             dataset, batch, seed=cfg.seed, num_workers=4, backend=cfg.loader_backend,
-            start_batch=start_step // cfg.data_echo))
+            start_batch=start_step // cfg.data_echo, process_index=mesh.data_index,
+            process_count=mesh.n_data))
 
-    step_fn = build_step_fn(cfg, model, sampler, perceptual)
+    step_fn = build_step_fn(cfg, model, sampler, perceptual, mesh)
     seed = cfg.seed + 1                 # the augmentation's key, apart from the init's
     pin = dev.type == "cuda"
+    rows = slice(None)
+    if mesh.space > 1:
+        h = cfg.model.img_size // mesh.space
+        rows = slice(mesh.space_index * h, (mesh.space_index + 1) * h)
 
     def fetch(fetch_step: int, sub: int) -> dict:
         """The next host batch, with the global ids of its samples."""
         hb = dict(next(data_iter))
-        hb["aug_id"] = np.arange(batch, dtype=np.int64) + (fetch_step + sub) * cfg.global_batch
+        hb["aug_id"] = aug_ids(batch, mesh.data_index, fetch_step, sub, cfg.global_batch)
         return hb
 
     def to_device(hb: dict) -> dict:
         """A host batch on the device: pinned memory, copied asynchronously;
-        with device_data, the images gathered from the device table. The
-        aug_ids stay on the host, where the step hashes its draws."""
+        with device_data, the images gathered from the device table; with
+        spatial sharding, the rank's rows only (the full images stay on the
+        host for the image grids). The aug_ids stay on the host, where the
+        step hashes its draws."""
         key = "index" if table is not None else "image"
-        x = torch.from_numpy(np.ascontiguousarray(hb[key]))
+        x = torch.from_numpy(np.ascontiguousarray(hb[key][:, rows] if mesh.space > 1
+                                                  else hb[key]))
         x = x.pin_memory().to(dev, non_blocking=True) if pin else x
         image = table.index_select(0, x) if table is not None else x
-        return {"image": image, "aug_id": hb["aug_id"]}
+        out = {"image": image, "aug_id": hb["aug_id"]}
+        if mesh.space > 1:
+            out["full"] = hb["image"]
+        return out
 
-    logger = MetricLogger(cfg.ckpt_dir)
+    def viz_images(b: dict) -> torch.Tensor:
+        return torch.from_numpy(np.asarray(b["full"])).to(dev) if "full" in b else b["image"]
+
+    def save(step: int, force: bool = False) -> None:
+        """Rank 0 writes; every rank passes the barrier after it."""
+        if lead:
+            ckpt.save(step, state, force=force)
+        if mesh.world > 1:
+            dist.barrier()
+
+    logger = MetricLogger(cfg.ckpt_dir) if lead else None
     anomaly = torch.autograd.detect_anomaly() if debug_nans else contextlib.nullcontext()
     profiler = None
     t_last = time.perf_counter()
@@ -184,7 +247,7 @@ def train(cfg: TrainConfig, *, data_iter: Iterator[dict] | None = None, restore:
     echoed = None
     with anomaly:
         for step in range(start_step, cfg.steps, stride):
-            if cfg.profile_steps and step <= cfg.profile_steps[0] < step + stride:
+            if lead and cfg.profile_steps and step <= cfg.profile_steps[0] < step + stride:
                 profiler = _start_profile(dev)
             if cfg.scan_groups > 1:
                 # One dispatch = scan_groups fetch groups, fetched group-major:
@@ -210,18 +273,21 @@ def train(cfg: TrainConfig, *, data_iter: Iterator[dict] | None = None, restore:
                 raise FloatingPointError(f"non-finite loss at step {step}: {metrics['loss']}")
 
             if step % cfg.log_every < stride or step + stride >= cfg.steps:
+                # The metrics are the mean over the data shards, the same on
+                # every rank; the throughput is per rank (per card).
                 m = {k: v.item() for k, v in metrics.items()}
                 now = time.perf_counter()
                 dt = now - t_last
-                m["img_per_sec_per_chip"] = imgs_since / dt if dt > 0 else 0.0
+                m["img_per_sec_per_chip"] = imgs_since / dt / mesh.world if dt > 0 else 0.0
                 m["lr_step"] = step
                 m["vgg_mode"] = perceptual.vgg_mode
-                logger.log(step, m)
+                if lead:
+                    logger.log(step, m)
                 t_last = now
                 imgs_since = 0
 
-            if cfg.image_log_every and step % cfg.image_log_every < stride:
-                _log_images(logger, state.model, viz["image"], step)
+            if lead and cfg.image_log_every and step % cfg.image_log_every < stride:
+                _log_images(logger, state.model, viz_images(viz), step)
 
             if (cfg.fault_injection_step is not None
                     and step <= cfg.fault_injection_step < step + stride):
@@ -232,13 +298,16 @@ def train(cfg: TrainConfig, *, data_iter: Iterator[dict] | None = None, restore:
             if (step + stride) % group == 0:
                 # Checkpoints only at group boundaries, so that the resume
                 # seek (start_batch = step // data_echo) stays exact.
-                ckpt.save(step + stride, state)
+                save(step + stride)
 
     if profiler is not None:
         _stop_profile(profiler, dev, os.path.join(cfg.ckpt_dir, "profile"), cfg.steps)
-    ckpt.save(cfg.steps, state, force=True)
-    ckpt.wait()
-    logger.close()
+    if lead:
+        ckpt.save(cfg.steps, state, force=True)
+        ckpt.wait()
+        logger.close()
+    if mesh.world > 1:
+        dist.barrier()
     return state
 
 

@@ -22,6 +22,7 @@ from partseg_tpu_torch.augment.pair import PairDraws, keyed_pair_draws, make_pai
 from partseg_tpu_torch.augment.tps import TPSSampler
 from partseg_tpu_torch.losses.equivariance import equivariance_loss
 from partseg_tpu_torch.device import default_device
+from partseg_tpu_torch.dist.mesh import average, group_size
 from partseg_tpu_torch.losses.perceptual import PerceptualLoss
 from partseg_tpu_torch.losses.vgg import VGG19Features, load_vgg19
 from partseg_tpu_torch.models.partnet import PartNet
@@ -83,13 +84,21 @@ def make_loss_fn(cfg: TrainConfig, model: PartNet, sampler: TPSSampler,
 
 
 def make_train_step(cfg: TrainConfig, model: PartNet, sampler: TPSSampler,
-                    perceptual: PerceptualLoss, warp_on: bool = True) -> Callable:
+                    perceptual: PerceptualLoss, warp_on: bool = True,
+                    group=None) -> Callable:
     """train_step(state, batch, seed=0, draws=None) → (state, metrics).
 
     warp_on is static, as in the JAX package: a warp_every > 1 schedule
     builds one step with the warp and one without (make_train_period).
     ``batch["aug_id"]`` [B] (host integers, default 0..B−1) are the
-    samples' global ids that key their draws. Metrics are 0-dim tensors on the model's device."""
+    samples' global ids that key their draws. Metrics are 0-dim tensors on the model's device.
+
+    ``group`` (a mesh's data group) makes it the data-parallel step, the
+    JAX step with ``axis_name``: each rank takes its shard of the batch,
+    and the gradients and the metrics are averaged over the group, in one
+    all-reduce, before the clip and Adam (the swap loss rolls the
+    appearance within the shard). At a group size of 1 the step has no
+    collective, and without a group it has none either."""
     optimizer = make_optimizer(cfg.optim)
     loss_fn = make_loss_fn(cfg, model, sampler, perceptual, warp_on)
 
@@ -107,6 +116,11 @@ def make_train_step(cfg: TrainConfig, model: PartNet, sampler: TPSSampler,
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
         metrics = {k: v.detach() for k, v in metrics.items()}
+        if group is not None and group_size(group) > 1:
+            names = list(metrics)
+            reduced = average(grads + [metrics[k] for k in names], group)
+            grads = reduced[:len(grads)]
+            metrics = dict(zip(names, reduced[len(grads):]))
         metrics["grad_norm"] = optimizer.update(state.model, grads, state.opt_state)
         state.step += 1
         return state, metrics
@@ -115,10 +129,10 @@ def make_train_step(cfg: TrainConfig, model: PartNet, sampler: TPSSampler,
 
 
 def make_train_period(cfg: TrainConfig, model: PartNet, sampler: TPSSampler,
-                      perceptual: PerceptualLoss) -> Callable:
+                      perceptual: PerceptualLoss, group=None) -> Callable:
     """One full ``augment.warp_every`` period: sub-step 0 warps, the
     others train warp-free. Takes a tuple of one batch per sub-step."""
-    subs = [make_train_step(cfg, model, sampler, perceptual, warp_on=(i == 0))
+    subs = [make_train_step(cfg, model, sampler, perceptual, warp_on=(i == 0), group=group)
             for i in range(cfg.augment.warp_every)]
     return compose_period(subs)
 

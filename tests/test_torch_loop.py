@@ -285,11 +285,6 @@ def test_alignment_errors_match_jax(case, tmp_path, jax_train):
         assert port_msg.split("(")[0] == jax_msg.split("(")[0], (port_msg, jax_msg)
 
 
-def test_space_shards_is_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        run(TINY.replace(space_shards=2), tmp_path, "run")
-
-
 # ``python -m partseg_tpu_torch.train.cli`` with TensorBoard stubbed out.
 _CLI = (f"import runpy, sys; sys.modules[{TENSORBOARD!r}] = None; "
         "runpy.run_module('partseg_tpu_torch.train.cli', run_name='__main__')")
@@ -327,11 +322,18 @@ def test_fault_injection_then_resume_through_the_cli(tmp_path):
     assert sorted(os.listdir(tmp_path / "run" / "images"))[0] == "input_0000000.png"
 
 
-def test_cli_refuses_what_is_not_ported(tmp_path):
+def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
+    """What the CLI cannot do it refuses before it starts: NCCL for ranks
+    that share one card (before joining the process group), and a dataset
+    that is not there."""
     from partseg_tpu_torch.train import cli
 
-    with pytest.raises(SystemExit, match="Queue 1 item 5"):
-        cli.main(["--config", "synthetic", "--coordinator", "localhost:1234"])
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.setenv("LOCAL_RANK", "1")
+    with pytest.raises(SystemExit, match="--dist_backend gloo"):
+        cli.main(["--config", "synthetic", "--device", "cuda:0", "--dist_backend", "nccl",
+                  "--coordinator", "localhost:1234"])
+    monkeypatch.delenv("WORLD_SIZE")
     with pytest.raises(SystemExit) as exit_:
         cli.main(["--config", "celeba", "--check_data", "--set",
                   "dataset_kwargs=(('size',16),)"])

@@ -192,8 +192,12 @@ def _imports(path: Path) -> set[str]:
 
 def test_port_imports_nothing_of_jax():
     files = sorted((REPO / "partseg_tpu_torch").rglob("*.py")) + [
-        REPO / "chip_smoke.py", REPO / "tests" / "_torch_golden.py"]
+        REPO / "chip_smoke.py", REPO / "tests" / "_torch_golden.py",
+        REPO / "tests" / "_torch_dist_child.py"]
     assert len(files) > 15
+    port = REPO / "partseg_tpu_torch"
+    assert {port / "dist" / "mesh.py", port / "parallel" / "spatial.py",
+            port / "parallel" / "spatial_model.py", port / "parallel" / "spatial_train.py"} <= set(files)
     banned = {"jax", "jaxlib", "flax", "chex", "optax", "orbax", "grain", "tensorflow",
               "partseg_tpu", "configs"}
     for path in files:

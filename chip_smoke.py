@@ -68,11 +68,28 @@ Phases (one JSON line each; any failure exits non-zero):
                     rule, then tools.validate_segmentation.
      cli          — the infer, transfer, eval and export CLIs on validate's
                     checkpoint (infer and transfer as arrays without cv2).
+     trace        — tools.trace_step on speed128 at B = 128: device ms
+                    per optimizer step by kernel category, top kernels,
+                    idle share.
+     components   — tools.profile_components at its flagship 128 px config,
+                    B = 64: each stage's ms by CUDA events.
+     bench_infer  — tools.bench_infer on celeba at B = 256: eager and
+                    exported img/s; the exported outputs against eager's.
+     probe_warp   — tools.probe_warp_parity: tps_warp and the explicit-flow
+                    bilinear_sample against the plain gather warp.
+     quality      — one period of each of the study variants flagship and
+                    speed128_r5_wf25d32 (128 px, B = 64) in this process,
+                    then the reduced quality study through its CLI (40
+                    flagship steps, rates measured on the card by bench
+                    children): result.json well formed, rates from the
+                    card, the study's parent never on the card.
      path_kernels — softmax_moments, render_assemble (forward; backward
                     kernel where the path trained) and tps_warp against
                     their plain versions on the inputs the evals, export,
-                    golden, validate and cli paths gave them (the first
-                    call of each shape, kept while the path ran).
+                    golden, validate, cli and quality paths gave them (the
+                    first call of each shape, kept while the path ran;
+                    quality's flagship 16²×256 takes the render_assemble
+                    backward's staging pair).
   9. timing       — each kernel's device time per call (torch.profiler,
                     host excluded) and its wrapper's CUDA-event median
                     (host included), at the serving and the training
@@ -80,11 +97,23 @@ Phases (one JSON line each; any failure exits non-zero):
                     library call where there is one; the end-to-end
                     requests and train period; bounds from the H100's
                     peaks.
+     timing_staging_backward — render_assemble's staging backward pair at
+                    the flagship's 16²×256 and deepfashion's K = 16 scales
+                    (B = 64), against its bound.
+     feed         — tools.feed_bench over 2,000 JPEGs at 178×218 against
+                    the demand of timing_train's speed128 rate: the thread
+                    pool, and the native pool where it builds on the host.
+     tools_seconds — the seconds of each phase that drives a tool (trace to
+                    quality, timing_staging_backward, feed) and their sum.
      tps_wide     — tps_warp with a basis staged in chunks (grid 20, and
                     grid 15 banded): against the plain sample, and timed.
  10. profile      — torch.profiler device time by kernel family over one
                     infer, one transfer request and one train period, and
-                    the device's idle share.
+                    the device's idle share (aggregated by tools.trace_step).
+     profiler     — the device-time calls whose three profiler windows held
+                    no device time (CUPTI sometimes delivers none): each
+                    device_ms then came from CUDA events, and a profile
+                    breakdown reads "not measured".
 Then the kernels line (each kernel's launches on the train period, and
 on each later path in launches_by_path), nvidia-smi's line, and the
 final status line.
@@ -167,6 +196,7 @@ from partseg_tpu_torch.partops.kernels import (
     tps_warp_plain,
 )
 from partseg_tpu_torch.partops.kernels.bilinear_sample import sample_with_grads
+from partseg_tpu_torch.partops.kernels.render_assemble import TILED_CHANNELS, TILED_PARTS
 from partseg_tpu_torch.partops.kernels.tps_warp import (
     band_config,
     kernel_order_flow,
@@ -175,6 +205,8 @@ from partseg_tpu_torch.partops.kernels.tps_warp import (
     tps_sample_plain,
 )
 from partseg_tpu_torch.partops.moments import precision_from_cov
+from partseg_tpu_torch.tools import trace_step
+from partseg_tpu_torch.tools.quality_study import PX128_BASE, STUDY_BATCH, VARIANTS_128
 from partseg_tpu_torch.train import (
     LossConfig, OptimConfig, TrainConfig, build_perceptual, compose_period, create_state,
     make_loss_fn, make_train_period, make_train_step,
@@ -243,25 +275,29 @@ def event_ms(fn, inner: int = 1, runs: int = TIMING_RUNS, warmup: int = 3) -> fl
     return statistics.median(s.elapsed_time(e) / inner for s, e in pairs)
 
 
+PROFILER_FALLBACKS: list = []   # device_ms calls whose profiler windows held no device time
+
+
 def device_ms(fn, calls: int = PROFILE_CALLS, warmup: int = 3) -> float:
     """Device time of one call of ``fn``: the self time of every kernel,
     memset and copy it runs on the card, from torch.profiler (CUPTI), over
-    ``calls`` calls after a warm-up. The host's time is not in it."""
-    from torch.profiler import ProfilerActivity, profile
-
+    ``calls`` calls after a warm-up. The host's time is not in it. Where
+    three profiler windows in a row hold no device time, CUDA events time
+    ``calls`` back-to-back calls instead (the host's launch gaps then
+    count): a ``device_ms_by_events`` line says so, and phase
+    ``profiler`` counts such calls."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    for _ in range(3):   # CUPTI now and then delivers an empty window: take another
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
-        if us > 0:
-            return us / calls / 1e3
-    raise SmokeError("torch.profiler recorded no device time in three windows")
+    prof, _ = trace_step.profile_window(fn, calls, cuda=True)
+    us = trace_step.device_us(prof)
+    if us > 0:
+        return us / calls / 1e3
+    ms = event_ms(fn, inner=calls, runs=3, warmup=0)
+    PROFILER_FALLBACKS.append({"device_ms_by_events": ms, "calls": calls})
+    emit("device_ms_by_events", reason="torch.profiler recorded no device time in three "
+                                       "windows", calls=calls, ms=ms)
+    return ms
 
 
 # ----------------------------------------------------------------- inputs
@@ -315,6 +351,33 @@ def render_cases(cfg, mu, sigma, gen):
         res = cfg.img_size // 2 ** (n - 1 - i)
         app = torch.randn((BATCH, cfg.n_parts, f), generator=gen, device="cuda").to(torch.bfloat16)
         cases.append((f"{res}x{f}", mu, lam, app, res))
+    return cases
+
+
+def staging_backward_cases(gen):
+    """(label, K, mu, lam, app, res, g) at every decoder scale that takes
+    render_assemble's staging backward pair (K > 12 or C > 128), at the
+    study's B = 64: the flagship 128 px decode's 16²×256 (phase quality's
+    flagship period) and each scale of the K = 16 deepfashion decode. μ, Λ
+    from the moments of random logits at the model's map size; bf16
+    appearance as the bf16 step passes it; an f32 cotangent g."""
+    batch = STUDY_BATCH
+    cases = []
+    for label, m in (("flagship", study_config("flagship").model),
+                     ("deepfashion", train_config("deepfashion").model)):
+        k = m.n_parts
+        logits = 3.0 * torch.randn((batch, m.map_size, m.map_size, k), generator=gen,
+                                   device="cuda")
+        _, mu, sigma = softmax_moments_plain(logits)
+        lam = precision_from_cov(sigma).contiguous()
+        for i, f in enumerate(m.decoder_features[:m.decoder_scales]):
+            res = (m.decoder_out_size or m.img_size) // 2 ** (m.decoder_scales - 1 - i)
+            if k <= TILED_PARTS and f <= TILED_CHANNELS:
+                continue
+            app = 0.5 * torch.randn((batch, k, f), generator=gen, device="cuda")
+            app = app.to(torch.bfloat16)
+            g = torch.randn((batch, res, res, f), generator=gen, device="cuda")
+            cases.append((f"{label} {res}x{f}", k, mu.contiguous(), lam, app, res, g))
     return cases
 
 
@@ -948,32 +1011,11 @@ def phase_train_parity() -> None:
           f"train_parity params: {worst_all}, {worst_big} (lr {lr})")
 
 
-_CATEGORIES = (   # (category, lower-case kernel-name substrings), first match wins
-    ("softmax_moments", ("softmax_moments_kernel",)),
-    ("render_assemble", ("render_assemble_kernel",)),
-    ("tps_warp", ("tps_warp_kernel",)),
-    ("bilinear_sample", ("bilinear_sample_kernel",)),
-    ("group_norm", ("rowwisemoments", "fusedparams", "groupnorm", "group_norm",
-                    "compute_internal_gradients", "gamma_beta")),
-    ("conv_matmul", ("conv", "xmma", "gemm", "cutlass", "fprop", "dgrad", "wgrad", "cudnn",
-                     "sm90_", "sm80_")),
-    ("optimizer_foreach", ("foreach", "multi_tensor")),
-    ("scatter_index", ("index", "scatter", "gather")),
-    ("softmax_argmax", ("softmax", "argmax", "reduce")),
-    ("pool_upsample_cat", ("pool", "upsample", "cat")),
-    ("elementwise_copy", ("elementwise", "copy", "cast", "vectorized")),
-)
-
-
-# The kernel wrappers' backward nodes: softmax_moments' is the one autograd
-# generates for the registered op; the others are autograd Functions.
-BACKWARD_NODES = ("GeneratedBackwardFor_partseg_softmax_moments_defaultBackward",
-                  "_RenderAssembleBackward", "_TPSWarpBackward", "_BilinearSampleBackward")
-
-
 def _profile_one(name: str, fn, batch: int) -> None:
-    from torch.profiler import ProfilerActivity, profile
-
+    """One call of ``fn`` under torch.profiler, aggregated by
+    tools/trace_step.py (its kernel categories, top kernels, top host ops
+    and the kernel wrappers' backward nodes), beside five wall times of
+    the call without the profiler."""
     fn()
     torch.cuda.synchronize()
     unprofiled_ms = []
@@ -982,36 +1024,14 @@ def _profile_one(name: str, fn, batch: int) -> None:
         fn()
         torch.cuda.synchronize()
         unprofiled_ms.append((time.perf_counter() - t0) * 1e3)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = {}
-    for e in kernels:
-        us = getattr(e, "self_device_time_total", 0.0)
-        cat = next((c for c, keys in _CATEGORIES
-                    if any(k in e.key.lower() for k in keys)), "other")
-        busy[cat] = busy.get(cat, 0.0) + us / 1e3
-    total = sum(busy.values())
-    top = sorted(kernels, key=lambda e: -getattr(e, "self_device_time_total", 0.0))[:10]
-    # Where the host's time goes: the CPU-side ops by their own time, and
-    # each kernel Function's backward node with what it calls.
-    host = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CPU]
-    top_host = sorted(host, key=lambda e: -e.self_cpu_time_total)[:10]
-    backward_nodes = {e.key: {"cpu_ms": e.cpu_time_total / 1e3, "calls": e.count} for e in host
-                      if e.key in BACKWARD_NODES}
+    prof, wall_ms = trace_step.profile_window(fn, 1, cuda=True)
+    summary = trace_step.summarize(prof, wall_ms, cuda=True)
+    if trace_step.device_us(prof) == 0:   # three empty windows: no breakdown in this run
+        PROFILER_FALLBACKS.append({"profile": name})
+        summary.update(device_ms=None, idle_share=None, device_time="not measured: "
+                       "torch.profiler recorded no device time in three windows")
     emit("profile", request=name, batch=batch, wall_ms=wall_ms, unprofiled_wall_ms=unprofiled_ms,
-         device_ms=total, idle_share=(1 - total / wall_ms) if wall_ms > 0 else None,
-         kernel_launches=sum(e.count for e in kernels),
-         by_category_ms=dict(sorted(busy.items(), key=lambda kv: -kv[1])),
-         top_kernels=[{"name": e.key[:90], "ms": e.self_device_time_total / 1e3,
-                       "calls": e.count} for e in top],
-         top_host_ops=[{"name": e.key[:60], "self_cpu_ms": e.self_cpu_time_total / 1e3,
-                        "calls": e.count} for e in top_host],
-         backward_nodes=backward_nodes)
+         **summary)
 
 
 def phase_profile(served: dict, trained: dict) -> None:
@@ -1065,8 +1085,33 @@ def _decode_rows(scales: list[dict]) -> dict:
     return out
 
 
+def phase_staging_backward(smi: str) -> None:
+    """render_assemble's staging backward pair (K > 12 or C > 128) at
+    ``staging_backward_cases``' scales: device ms per call (profiler),
+    the wrapper's event ms, the plain closed form's device ms, and the
+    bound (bytes: the cotangent g read once, as the backward row's)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 50)
+    staged = render_assemble.backward_staging_launches
+    rows = []
+    for label, k_, mu_, lam_, app, res, g in staging_backward_cases(gen):
+        bound, by = bound_ms(*render_backward_bound(STUDY_BATCH, k_, app.shape[-1], res))
+        dev_ms = device_ms(lambda: render_assemble_backward(mu_, lam_, app, res, res, "gauss", g))
+        rows.append({"scale": label, "k": k_, "device_ms": dev_ms,
+                     "plain_device_ms": device_ms(
+                         lambda: render_assemble_vjp(mu_, lam_, app, res, res, "gauss", g)),
+                     "ms": event_ms(lambda: render_assemble_backward(
+                         mu_, lam_, app, res, res, "gauss", g), inner=KERNEL_INNER),
+                     "bound_ms": bound, "bound_by": by, "device_over_bound": dev_ms / bound})
+    check(render_assemble.backward_staging_launches > staged,
+          "timing_staging_backward: the cases did not take the staging pair")
+    emit("timing_staging_backward", batch=STUDY_BATCH, dtype="bfloat16 appearance", rows=rows,
+         nvidia_smi=smi)
+
+
 def phase_timing(cfg, served: dict, trained: dict, zeros_launches: dict, errs: dict,
-                 smi: str) -> list[dict]:
+                 smi: str) -> tuple[list[dict], float]:
+    """Each kernel's row of the kernels line, and speed128's train img/s
+    (phase timing_train)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     k, size = cfg.n_parts, cfg.map_size
     fg = serving_logits(gen, k, size)
@@ -1169,6 +1214,7 @@ def phase_timing(cfg, served: dict, trained: dict, zeros_launches: dict, errs: d
         *tps_warp_backward_bound(nw, s, s, 3, m, 4))
     emit("timing_backward", batch=TRAIN_BATCH, backward=bwd, nvidia_smi=smi)
 
+
     model, x_s, x_a = served["model"], served["x_s"], served["x_a"]
     infer = make_infer_fn(model)
     torch.cuda.reset_peak_memory_stats()
@@ -1184,9 +1230,9 @@ def phase_timing(cfg, served: dict, trained: dict, zeros_launches: dict, errs: d
     torch.cuda.reset_peak_memory_stats()
     period_ms = event_ms(lambda: period(state, batches, tcfg.seed), runs=10, warmup=2)
     images = TRAIN_BATCH * tcfg.augment.warp_every
+    train_img_per_s = images / period_ms * 1e3
     emit("timing_train", config="speed128", batch=TRAIN_BATCH, dtype=str(tcfg.model.dtype),
-         period_ms=period_ms, images_per_period=images,
-         train_img_per_s=images / period_ms * 1e3,
+         period_ms=period_ms, images_per_period=images, train_img_per_s=train_img_per_s,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, nvidia_smi=smi)
 
     ra = _decode_rows(scales)
@@ -1195,7 +1241,7 @@ def phase_timing(cfg, served: dict, trained: dict, zeros_launches: dict, errs: d
     def train_shape(row: dict) -> dict:
         return {"train_" + key: row[key] for key in ("ms", "device_ms", "plain_ms", "bound_ms")}
 
-    return [
+    kernels = [
         {"name": "softmax_moments", "route": "cuda",
          "source": "partseg_tpu_torch/csrc/softmax_moments.cu",
          "replaces": "partseg_tpu/partops/pallas/softmax_moments.py:73",
@@ -1240,6 +1286,7 @@ def phase_timing(cfg, served: dict, trained: dict, zeros_launches: dict, errs: d
          "backward_ms": bwd["bilinear_sample"]["ms"],
          "per": f"one call, image [{nw},{s},{s},3] bf16 at {s * s} points each"},
     ]
+    return kernels, train_img_per_s
 
 
 def _backward_rule(baseline: Path):
@@ -2313,6 +2360,259 @@ def phase_cli(run_dir: str, smi: str) -> dict:
     return launches
 
 
+# ------------------------------------------------------------------ the tools
+
+STUDY_VARIANTS = ("flagship", "speed128_r5_wf25d32")
+STUDY_SMOKE_STEPS = 40          # the reduced study's flagship budget
+STUDY_TIMEOUT_S = 600
+FEED_IMAGES = 2000
+INFER_TOL = 1e-4                # bench_infer's exported vs eager outputs (abs; seg exact)
+WARP_F32_TOL = 1e-4             # phase kernels_warp's f32 tolerance
+
+
+def study_config(name: str):
+    """The quality study's 128 px config of variant ``name``."""
+    return train_config("synthetic", PX128_BASE + VARIANTS_128[name])
+
+
+@contextlib.contextmanager
+def _env(**values):
+    """Set environment variables while the block runs."""
+    prior = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in prior.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def phase_trace(smi: str) -> dict:
+    """tools.trace_step on speed128 at B = 128 (the preset at full width):
+    one warm-up period, then two under torch.profiler; its breakdown per
+    optimizer step (categories, top kernels, idle share). The hand
+    kernels' categories must be in it, and the categories must sum to the
+    total."""
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with _env(TRACE_BATCH=str(TRAIN_BATCH), TRACE_CONFIG="speed128", TRACE_SET=""), \
+            _captured() as log:
+        result = trace_step.main()
+    launches = launch_counts()
+    cats = result["by_category_ms_per_step"]
+    emit("trace", config="speed128", batch=TRAIN_BATCH, sub_steps=result["sub_steps"],
+         device_ms_per_step=result["device_ms_per_step"],
+         wall_ms_per_step=result["wall_ms_per_step"], idle_share=result["idle_share"],
+         kernel_launches_per_step=result["kernel_launches_per_step"],
+         by_category_ms_per_step=cats, top_kernels=result["top_kernels"][:12],
+         top_host_ops=result["top_host_ops"][:8], printed_lines=len(log[0].splitlines()),
+         launches=launches, nvidia_smi=smi)
+    check(abs(sum(cats.values()) - result["device_ms_per_step"])
+          <= 1e-9 * result["device_ms_per_step"], f"trace categories {cats}")
+    check(all(cats.get(k, 0) > 0 for k in ("tps_warp", "softmax_moments", "render_assemble",
+                                           "conv_matmul")), f"trace categories {cats}")
+    check(0 <= result["idle_share"] < 1, f"trace idle share {result['idle_share']}")
+    return launches
+
+
+def phase_components(smi: str) -> dict:
+    """tools.profile_components at its flagship 128 px config, B = 64:
+    each row's ms by CUDA events."""
+    from partseg_tpu_torch.tools import profile_components
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with _captured():
+        rows = profile_components.main()
+    launches = launch_counts()
+    emit("components", batch=profile_components.B, img_size=profile_components.S,
+         rows=[{k: r[k] for k in ("name", "ms", "img_per_s")} for r in rows],
+         launches=launches, nvidia_smi=smi)
+    check(len(rows) == 12 and all(math.isfinite(r["ms"]) and r["ms"] > 0 for r in rows),
+          f"components rows {rows}")
+    check(launches["tps_warp"] > 0 and launches["bilinear_sample"] > 0
+          and launches["render_assemble"] > 0 and launches["softmax_moments"] == 0,
+          f"components launches {launches}")
+    return launches
+
+
+def phase_bench_infer(smi: str) -> dict:
+    """tools.bench_infer on the celeba config at B = 256: eager and
+    exported img/s, and the exported program's outputs against eager's
+    (seg equal, the others within INFER_TOL)."""
+    from partseg_tpu_torch.tools import bench_infer
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with _captured():
+        result = bench_infer.main(["--config", "celeba", "--batch", str(BATCH)])
+    launches = launch_counts()
+    errs = result["exported"]["max_abs_vs_eager"]
+    emit("bench_infer", config="celeba", batch=BATCH,
+         eager_img_per_s=result["eager"]["value"], exported_img_per_s=result["exported"]["value"],
+         max_abs_vs_eager=errs, tolerance=INFER_TOL, launches=launches, nvidia_smi=smi)
+    check(errs["seg"] == 0.0 and all(v <= INFER_TOL for v in errs.values()),
+          f"bench_infer exported vs eager {errs}")
+    check(launches["softmax_moments"] > 0, f"bench_infer launches {launches}")
+    return launches
+
+
+def phase_probe_warp(smi: str) -> dict:
+    """tools.probe_warp_parity: the tps_warp kernel and the explicit-flow
+    bilinear_sample kernel against the plain gather warp on a smooth
+    4 × 128² image; the interior error of both within kernels_warp's f32
+    tolerance."""
+    from partseg_tpu_torch.tools import probe_warp_parity
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with _captured():
+        result = probe_warp_parity.main()
+    launches = launch_counts()
+    emit("probe_warp", tps_warp=result["tps_warp"], bilinear_sample=result["bilinear_sample"],
+         tolerance=WARP_F32_TOL, launches=launches, nvidia_smi=smi)
+    check(result["tps_warp"]["interior_max"] <= WARP_F32_TOL
+          and result["bilinear_sample"]["interior_max"] <= WARP_F32_TOL,
+          f"probe_warp interior errors {result}")
+    check(launches["tps_warp"] == 1 and launches["bilinear_sample"] == 1,
+          f"probe_warp launches {launches}")
+    return launches
+
+
+def _cuda_libraries(pid: int) -> set:
+    """The CUDA driver and torch libraries mapped into process ``pid``."""
+    try:
+        maps = Path(f"/proc/{pid}/maps").read_text()
+    except OSError:            # the process has ended
+        return set()
+    return {lib for lib in ("libcuda.so", "libtorch") if lib in maps}
+
+
+def phase_quality(smi: str) -> dict:
+    """The quality study. First, in this process and recorded for
+    path_kernels, one period of each of STUDY_VARIANTS at the study's
+    128 px config and B = 64 (the flagship decode's 16²×256 scale takes the
+    render_assemble backward's staging pair). Then the reduced study
+    through its CLI, as users run it: both variants, flagship budget
+    STUDY_SMOKE_STEPS, rates measured on this card by bench children in
+    turns. result.json must hold both rows with measured rates (three
+    rounds each), finite metrics and this card's nvidia-smi line; the
+    verdict is printed, not gated (40 steps decide nothing). While it
+    runs, the study's parent must never map the CUDA driver or torch
+    (/proc/<pid>/maps): it holds no context. nvidia-smi's compute
+    processes cannot show this in a container, where every process may
+    read as one pid."""
+    t0 = time.perf_counter()
+    periods = {}
+    for name in STUDY_VARIANTS:
+        cfg = study_config(name)
+        state, period, batches, _ = build_trainer(cfg, STUDY_BATCH, seed=SEED)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        state, metrics = period(state, batches, cfg.seed)
+        torch.cuda.synchronize()
+        periods[name] = {**launch_counts(),
+                         "render_assemble_backward_staging":
+                             render_assemble.backward_staging_launches,
+                         "loss": metrics["loss"].item()}
+        check(math.isfinite(periods[name]["loss"]), f"quality {name}: loss not finite")
+        del state, period, batches
+    flag, fast = periods["flagship"], periods["speed128_r5_wf25d32"]
+    check(flag["render_assemble_backward"] == 4 and flag["render_assemble_backward_staging"] == 1
+          and flag["softmax_moments"] == 2 and flag["tps_warp"] == 1,
+          f"quality flagship period launches {flag}")
+    check(fast["render_assemble_backward_staging"] == 0 and fast["tps_warp"] == 1,
+          f"quality speed128_r5_wf25d32 period launches {fast}")
+    in_process_s = time.perf_counter() - t0
+
+    torch.cuda.empty_cache()
+    parent_libs, polls = set(), 0
+    with tempfile.TemporaryDirectory() as base, \
+            open(os.path.join(base, "study.log"), "w+") as log:
+        t1 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "partseg_tpu_torch.tools.quality_study",
+             "--variants", ",".join(STUDY_VARIANTS), "--base_steps", str(STUDY_SMOKE_STEPS),
+             "--base_dir", os.path.join(base, "study")],
+            cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+        try:
+            while proc.poll() is None:
+                check(time.perf_counter() - t1 < STUDY_TIMEOUT_S,
+                      f"the quality study ran over {STUDY_TIMEOUT_S} s")
+                parent_libs |= _cuda_libraries(proc.pid)
+                polls += 1
+                time.sleep(2.0)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        study_s = time.perf_counter() - t1
+        log.seek(0)
+        tail = log.read()[-3000:]
+        check(proc.returncode in (0, 1), f"quality study exit {proc.returncode}: {tail}")
+        result = json.loads(Path(base, "study", "result.json").read_text())
+    rows = result["rows"]
+    emit("quality", in_process_periods=periods, in_process_s=in_process_s,
+         study_s=study_s, study_exit=proc.returncode, base_steps=result["base_steps"],
+         card=result["card"],
+         rates={n: {k: r.get(k) for k in ("img_s_chip", "img_s_chip_runs", "rate_source",
+                                          "steps", "steps_at_rate_extremes")}
+                for n, r in rows.items()},
+         metrics={n: {k: r[k] for k in ("landmark_err_pct_diag", "equiv_last", "miou", "fg_iou",
+                                        "learned")} for n, r in rows.items()},
+         verdict=result["pass_at_equal_wallclock"],
+         fastest_passing_variant=result["fastest_passing_variant"],
+         study_wall_s={**result["wall_s"], **{n: r["wall_s"] for n, r in rows.items()}},
+         polls=polls, study_parent_pid=proc.pid,
+         study_parent_cuda_libraries=sorted(parent_libs), nvidia_smi=smi)
+    check(set(rows) == set(STUDY_VARIANTS) and result["card"] == smi,
+          f"quality result.json rows {sorted(rows)}, card {result['card']!r}")
+    for name, r in rows.items():
+        check(r["rate_source"] == "measured" and len(r["img_s_chip_runs"]) == 3
+              and all(math.isfinite(v) and v > 0 for v in r["img_s_chip_runs"])
+              and r["img_s_chip"] == statistics.median(r["img_s_chip_runs"]),
+              f"quality {name}: rates {r}")
+        check(all(math.isfinite(r[k]) for k in ("landmark_err_pct_diag", "equiv_last", "miou",
+                                                "fg_iou")), f"quality {name}: metrics {r}")
+    check(rows["flagship"]["steps"] == STUDY_SMOKE_STEPS, f"quality flagship steps {rows}")
+    check(not parent_libs, f"the study's parent mapped {sorted(parent_libs)}")
+    check(proc.returncode == (0 if result["gate_pass"] else 1),
+          f"quality study exit {proc.returncode} against gate_pass {result['gate_pass']}")
+    return {k: flag[k] + fast[k] for k in launch_counts()}
+
+
+def phase_feed(smi: str, demand: float) -> dict:
+    """tools.feed_bench over FEED_IMAGES JPEGs at 178×218, with the demand
+    set to speed128's train img/s of phase timing_train: the thread-pool
+    backend must run; the native pool runs where partseg_native/build.sh
+    builds on this host, and its line says why where it does not."""
+    from partseg_tpu_torch.tools import feed_bench
+
+    reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        args = ["--dir", tmp, "--n_images", str(FEED_IMAGES), "--src_wh", "178x218",
+                "--batches", "50", "--warmup", "5", "--demand", str(demand)]
+        with _captured() as log:
+            (pool,) = feed_bench.main(args + ["--backends", "grain"])
+        with _captured() as log:
+            try:
+                feed_bench.main(args + ["--backends", "native"])
+            except SystemExit:
+                pass
+        native = json.loads(log[0].strip().splitlines()[-1])
+    launches = launch_counts()
+    emit("feed", demand_img_per_s=demand, thread_pool=pool, native=native, launches=launches,
+         nvidia_smi=smi)
+    check("error" not in pool and pool["img_per_s"] > 0, f"feed thread pool {pool}")
+    check(native["backend"] == "native" and ("error" in native or native["img_per_s"] > 0),
+          f"feed native {native}")
+    check(not any(launches.values()), f"feed launched kernels {launches}: it is host-only")
+    return launches
+
+
 # --------------------------------------------- kernels at the paths' shapes
 
 PATH_INPUTS: dict = {}   # (kernel, signature) → (path, grad enabled, inputs): first calls
@@ -2376,10 +2676,12 @@ def recording(path: str):
 
 def phase_path_kernels() -> dict:
     """Each kernel against its plain version on the inputs that the evals,
-    export, golden, validate and cli paths gave it (``recording``): the
-    CelebA model's remainder batch, the golden model's K = 4, the
+    export, golden, validate, cli and quality paths gave it (``recording``):
+    the CelebA model's remainder batch, the golden model's K = 4, the
     synthetic preset's K = 5 foreground slice of 6 logits, its 3-scale
-    decoder and its 64² warp head. Tolerances are phase kernels',
+    decoder and its 64² warp head, and the quality study's two 128 px
+    variants at B = 64 (the flagship's 16²×256 decoder scale is the
+    render_assemble backward's staging pair). Tolerances are phase kernels',
     kernels_warp's and backward's: softmax_moments parts rtol 1e-5, μ and
     Σ atol 1e-5; render_assemble 1e-5 of the largest output; tps_warp f32
     1e-4, bf16 2⁻⁸ + 1e-4. Where the path took gradients (validate's
@@ -2392,9 +2694,14 @@ def phase_path_kernels() -> dict:
     seen = {(r["kernel"], r["path"]) for r in report}
     for path, kernels in (("validate", ("softmax_moments", "render_assemble", "tps_warp")),
                           ("golden", ("softmax_moments", "render_assemble", "tps_warp")),
-                          ("evals", ("softmax_moments",))):
+                          ("evals", ("softmax_moments",)),
+                          ("quality", ("softmax_moments", "render_assemble", "tps_warp"))):
         check(all((k, path) in seen for k in kernels),
               f"path_kernels: {path} left no inputs of {kernels}: {sorted(seen)}")
+    staged = [r for r in report if r["kernel"] == "render_assemble" and r["path"] == "quality"
+              and r["grad"] and (r["app"][1] > TILED_PARTS or r["app"][2] > TILED_CHANNELS)]
+    check(any(r["app"] == [STUDY_BATCH, 10, 256] and r["res"] == 16 for r in staged),
+          f"path_kernels: no staging backward case at quality's 16²×256: {staged}")
     emit("path_kernels", cases=report, tolerances=PATH_TOLERANCES)
     return errs
 
@@ -2520,13 +2827,32 @@ def main() -> int:
             paths["validate"] = phase_validate(run_dir, smi)
         with recording("cli"):
             paths["cli"] = phase_cli(run_dir, smi)
+    tools_s = {}             # the seconds of each phase that drives a tool
+
+    def timed(name, phase, *args):
+        t0 = time.perf_counter()
+        out = phase(*args)
+        tools_s[name] = time.perf_counter() - t0
+        return out
+
+    paths["trace"] = timed("trace", phase_trace, smi)
+    paths["components"] = timed("components", phase_components, smi)
+    paths["bench_infer"] = timed("bench_infer", phase_bench_infer, smi)
+    paths["probe_warp"] = timed("probe_warp", phase_probe_warp, smi)
+    with recording("quality"):
+        paths["quality"] = timed("quality", phase_quality, smi)
     for name, e in phase_path_kernels().items():
         errs[name] = max(errs[name], e)
-    kernels = phase_timing(cfg, served, trained, zeros_launches, errs, smi)
+    kernels, train_img_per_s = phase_timing(cfg, served, trained, zeros_launches, errs, smi)
+    timed("timing_staging_backward", phase_staging_backward, smi)
+    paths["feed"] = timed("feed", phase_feed, smi, train_img_per_s)
+    emit("tools_seconds", phases=tools_s, total=sum(tools_s.values()))
     for row in kernels:
         row["launches_by_path"] = {path: counts[row["name"]] for path, counts in paths.items()}
     phase_tps_wide(smi)
     phase_profile(served, trained)
+    emit("profiler", calls_without_device_time=len(PROFILER_FALLBACKS),
+         fallbacks=PROFILER_FALLBACKS)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -17,15 +17,25 @@ Layering (mirrors partseg_tpu):
   dist/     — the process group, the (data, space) mesh, gradient averaging
   parallel/ — spatial sharding: the image rows of a data shard over ranks
   evals/    — serving entry points: make_infer_fn, infer_image, transfer
+  tools/    — the JAX package's tools/ scripts: validation, the quality
+              study, tracing, component, serving and feed benches
   configs   — model and train presets; convert — Flax params → state_dict
   bench     — train-step throughput on the card
 
 Entry points run on the CUDA device unless the caller passes
-``device="cpu"`` (see ``device.default_device``).
+``device="cpu"`` (see ``device.default_device``). Importing the package
+alone does not import torch, so an orchestrator such as
+``tools.quality_study`` can run from it without touching the card.
 """
-
-from partseg_tpu_torch.device import default_device
 
 __version__ = "0.1.0"
 
 __all__ = ["default_device"]
+
+
+def __getattr__(name: str):
+    if name == "default_device":
+        from partseg_tpu_torch.device import default_device
+
+        return default_device
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -116,14 +116,19 @@ def _stack(examples: list[dict]) -> dict:
 
 def prefetch(iterator: Iterator, depth: int = 2) -> Iterator:
     """Run `iterator` in a daemon thread with a bounded queue so host
-    batch assembly overlaps the device step."""
+    batch assembly overlaps the device step. An exception the iterator
+    raises in the thread is raised again by the consumer's ``next`` (the
+    JAX package's prefetch ends the stream instead)."""
     q: "queue.Queue" = queue.Queue(maxsize=depth)
     _END = object()
+    failed: list[BaseException] = []
 
     def worker():
         try:
             for item in iterator:
                 q.put(item)
+        except BaseException as e:      # handed to the consumer below
+            failed.append(e)
         finally:
             q.put(_END)
 
@@ -131,5 +136,7 @@ def prefetch(iterator: Iterator, depth: int = 2) -> Iterator:
     while True:
         item = q.get()
         if item is _END:
+            if failed:
+                raise failed[0]
             return
         yield item

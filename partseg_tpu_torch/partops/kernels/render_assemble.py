@@ -141,6 +141,8 @@ def _launch_backward(mu, lam, app, h, w, kernel, g):
                   int(app.dtype == torch.bfloat16), part.data_ptr() if rows else None, d_app.data_ptr(),
                   d_mu.data_ptr(), d_lam.data_ptr(), b, k, c, h, w, int(kernel == "gauss"), tile)
     render_assemble.backward_launches += 1
+    if not (k <= TILED_PARTS and c <= TILED_CHANNELS):
+        render_assemble.backward_staging_launches += 1
     return d_mu, d_lam, d_app
 
 
@@ -211,3 +213,4 @@ def render_assemble(mu: torch.Tensor, lam: torch.Tensor, app: torch.Tensor,
 
 render_assemble.launches = 0
 render_assemble.backward_launches = 0
+render_assemble.backward_staging_launches = 0   # those of them that took the staging pair

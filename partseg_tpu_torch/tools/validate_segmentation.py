@@ -33,9 +33,11 @@ def main(ckpt_dir: str, overrides: list | None = None, device=None) -> dict:
     kwargs = dict(cfg.dataset_kwargs)
     kwargs.pop("n_examples", None)    # the eval split sizes itself below
 
+    # Rendered once (the dataset caches its examples), scored for both models.
+    ds = SyntheticBlobs(seed=2, n_examples=512, with_masks=True, **kwargs)
+
     def run(m):
-        ds = SyntheticBlobs(seed=2, n_examples=512, with_masks=True, **kwargs)
-        it = make_loader(ds, 64, shuffle=False, num_epochs=1)
+        it = make_loader(ds, 64, shuffle=False, num_epochs=1, num_workers=4)
         return evaluate_segmentation(m, it, n_classes=ds.n_blobs + 1, max_batches=8)
 
     trained = run(model)

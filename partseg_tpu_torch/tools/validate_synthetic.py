@@ -69,11 +69,14 @@ def main(steps: int = 600, out_dir: str = "logs/validate_synthetic",
     def diag(gt):
         return np.full(len(gt), 2.0 * np.sqrt(2.0))
 
+    # The splits are rendered once (each dataset caches its examples) and
+    # scored for both models, in threads.
+    val = build_dataset("synthetic", split="val", **kwargs)
+    test = build_dataset("synthetic", split="test", **kwargs)
+
     def error_for(m):
-        tr = make_loader(build_dataset("synthetic", split="val", **kwargs),
-                         64, shuffle=False, num_epochs=1)
-        te = make_loader(build_dataset("synthetic", split="test", **kwargs),
-                         64, shuffle=False, num_epochs=1)
+        tr = make_loader(val, 64, shuffle=False, num_epochs=1, num_workers=4)
+        te = make_loader(test, 64, shuffle=False, num_epochs=1, num_workers=4)
         mu_tr, gt_tr = collect_mu(m, tr, max_batches=8)
         mu_te, gt_te = collect_mu(m, te, max_batches=8)
         W = fit_landmark_regressor(mu_tr, gt_tr)

@@ -84,6 +84,11 @@ class CheckpointManager:
         step = self.latest_step()
         if step is None:
             return None
+        return self.restore(state, step), step
+
+    def restore(self, state: TrainState, step: int) -> TrainState:
+        """Load the checkpoint of ``step`` into ``state``, in place."""
+        self.wait()
         ckpt = torch.load(self.path / f"{step}.pt", map_location="cpu", weights_only=True)
         state.model.load_state_dict(ckpt["model"])
         with torch.no_grad():
@@ -95,7 +100,7 @@ class CheckpointManager:
                     v.copy_(ckpt[name][k])
         state.opt_state.count = ckpt["count"]
         state.step = ckpt["step"]
-        return state, step
+        return state
 
     def wait(self) -> None:
         """Block until the last save is on disk; raise if it failed."""

@@ -35,6 +35,11 @@ Phases (one JSON line each; any failure exits non-zero):
                     state and draws: card against CPU, gradients included;
                     the metrics within 1e-4 plus their spread on the CPU
                     over periods whose weights are nudged by one ulp.
+     train_k16    — deepfashion (K = 16, full width, bf16, B = 64, seeded
+                    weights, the port's random VGG, device-resident images)
+                    through make_train_period: exact launches per period
+                    (render_assemble's backward at every scale a group of
+                    16 parts), period ms, device ms, peak memory.
      train_loop   — speed128 at full width and B = 128 through the train
                     loop (train/loop.py): the synthetic dataset, the
                     loader, scan_groups = 8, checkpoints. 32 steps; 16 and
@@ -86,10 +91,11 @@ Phases (one JSON line each; any failure exits non-zero):
      path_kernels — softmax_moments, render_assemble (forward; backward
                     kernel where the path trained) and tps_warp against
                     their plain versions on the inputs the evals, export,
-                    golden, validate, cli and quality paths gave them (the
-                    first call of each shape, kept while the path ran;
-                    quality's flagship 16²×256 takes the render_assemble
-                    backward's staging pair).
+                    golden, validate, cli, train_k16 and quality paths
+                    gave them (the first call of each shape, kept while the
+                    path ran; quality's flagship 16²×256 is the backward's
+                    case of two channel chunks, train_k16's K = 16 decode
+                    its group of 16 parts at every scale).
   9. timing       — each kernel's device time per call (torch.profiler,
                     host excluded) and its wrapper's CUDA-event median
                     (host included), at the serving and the training
@@ -97,14 +103,14 @@ Phases (one JSON line each; any failure exits non-zero):
                     library call where there is one; the end-to-end
                     requests and train period; bounds from the H100's
                     peaks.
-     timing_staging_backward — render_assemble's staging backward pair at
-                    the flagship's 16²×256 and deepfashion's K = 16 scales
-                    (B = 64), against its bound.
+     timing_wide_decodes — render_assemble forward and backward at the
+                    flagship's 16²×256 and deepfashion's K = 16 scales
+                    (B = 64), against their bounds.
      feed         — tools.feed_bench over 2,000 JPEGs at 178×218 against
                     the demand of timing_train's speed128 rate: the thread
                     pool, and the native pool where it builds on the host.
      tools_seconds — the seconds of each phase that drives a tool (trace to
-                    quality, timing_staging_backward, feed) and their sum.
+                    quality, timing_wide_decodes, feed) and their sum.
      tps_wide     — tps_warp with a basis staged in chunks (grid 20, and
                     grid 15 banded): against the plain sample, and timed.
  10. profile      — torch.profiler device time by kernel family over one
@@ -124,7 +130,9 @@ it runs only device, build, kernels_warp and turns: both checkouts' csrc/
 built into two libraries; tps_warp's output held bit for bit to the
 baseline's (and to the plain version as above); and each kernel's C entry
 point of both called on the same inputs, device time per call in the
-order baseline, this, this, baseline.
+order baseline, this, this, baseline (render_assemble's backward also at
+the wide decodes' scales, with a sweep of this checkout's tiles, and bit
+for bit the baseline's at K <= 12 and C <= 128).
 
 Imports nothing of JAX: it needs only this checkout, PyTorch and nvcc.
 """
@@ -196,7 +204,14 @@ from partseg_tpu_torch.partops.kernels import (
     tps_warp_plain,
 )
 from partseg_tpu_torch.partops.kernels.bilinear_sample import sample_with_grads
-from partseg_tpu_torch.partops.kernels.render_assemble import TILED_CHANNELS, TILED_PARTS
+from partseg_tpu_torch.partops.kernels.render_assemble import (
+    CHUNK_CHANNELS,
+    NARROW_PARTS,
+    backward_chunks,
+    backward_groups,
+    backward_partial_rows,
+    backward_tile,
+)
 from partseg_tpu_torch.partops.kernels.tps_warp import (
     band_config,
     kernel_order_flow,
@@ -354,13 +369,14 @@ def render_cases(cfg, mu, sigma, gen):
     return cases
 
 
-def staging_backward_cases(gen):
-    """(label, K, mu, lam, app, res, g) at every decoder scale that takes
-    render_assemble's staging backward pair (K > 12 or C > 128), at the
-    study's B = 64: the flagship 128 px decode's 16²×256 (phase quality's
-    flagship period) and each scale of the K = 16 deepfashion decode. μ, Λ
-    from the moments of random logits at the model's map size; bf16
-    appearance as the bf16 step passes it; an f32 cotangent g."""
+def wide_decode_cases(gen):
+    """(label, K, mu, lam, app, res, g, kind) at every decoder scale with
+    K > 12 or C > 128 (the backward shapes of more than one part group of
+    12 or channel chunk), at the study's B = 64: the flagship 128 px
+    decode's 16²×256 (phase quality's flagship period) and each scale of
+    the K = 16 deepfashion decode (phase train_k16). μ, Λ from the moments
+    of random logits at the model's map size; bf16 appearance as the bf16
+    step passes it; an f32 cotangent g."""
     batch = STUDY_BATCH
     cases = []
     for label, m in (("flagship", study_config("flagship").model),
@@ -372,13 +388,23 @@ def staging_backward_cases(gen):
         lam = precision_from_cov(sigma).contiguous()
         for i, f in enumerate(m.decoder_features[:m.decoder_scales]):
             res = (m.decoder_out_size or m.img_size) // 2 ** (m.decoder_scales - 1 - i)
-            if k <= TILED_PARTS and f <= TILED_CHANNELS:
+            if k <= NARROW_PARTS and f <= CHUNK_CHANNELS:
                 continue
             app = 0.5 * torch.randn((batch, k, f), generator=gen, device="cuda")
             app = app.to(torch.bfloat16)
             g = torch.randn((batch, res, res, f), generator=gen, device="cuda")
-            cases.append((f"{label} {res}x{f}", k, mu.contiguous(), lam, app, res, g))
+            cases.append((label, k, mu.contiguous(), lam, app, res, g, m.render_kernel))
     return cases
+
+
+def backward_plan(k: int, c: int, res: int, b: int) -> dict:
+    """The backward kernel's launch for one decoder scale, by the wrapper's
+    rule: pixels per tile, rows of partials (0: one cluster per image and
+    part group), part groups and channel chunks."""
+    tile = backward_tile(k, c, res * res)
+    return {"scale": f"{res}x{c}", "k": k, "tile": tile,
+            "rows": backward_partial_rows(k, c, res * res, b, tile),
+            "groups": backward_groups(k), "chunks": backward_chunks(c)}
 
 
 # ------------------------------------------------------------------ bounds
@@ -453,7 +479,9 @@ def phase_build() -> None:
     seconds = time.perf_counter() - t0
     log = (_build.BUILD_DIR / "build.log")
     ptxas = [ln.strip() for ln in log.read_text().splitlines()
-             if "registers" in ln or "Compiling entry" in ln] if log.exists() else []
+             if "registers" in ln or "Compiling entry" in ln
+             or ("spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln)
+             ] if log.exists() else []
     emit("build", seconds=seconds, nvcc=_build.nvcc_path(), ptxas=ptxas)
 
 
@@ -724,8 +752,8 @@ def phase_backward(cfg) -> dict:
     order for the image cotangents of the warps. Then render_assemble's
     backward kernel against its closed form on the same cotangents, f32
     and bf16 appearance, at the speed128 decoder's scales (one cluster per
-    image) and the celeba decoder's (partial sums: 64², 128²; the staging
-    kernel: C = 256): 1e-5 of each cotangent's largest (the same f32
+    image) and the celeba decoder's (partial sums: 64², 128²; two channel
+    chunks: C = 256): 1e-5 of each cotangent's largest (the same f32
     products summed in another order); a bf16 d_app may round to the
     neighbouring bf16 value (one ulp: rtol 2⁻⁷). Repeats must give the
     same bits."""
@@ -1067,6 +1095,53 @@ def phase_train_zeros() -> dict:
     return launches
 
 
+K16_BATCH = 64   # human36m's and penn_action's global_batch 512 over 8 TPU chips
+K16_LAUNCHES = {"tps_warp": 1, "softmax_moments": 3, "render_assemble": 8, "bilinear_sample": 0,
+                "render_assemble_backward": 8}
+
+
+def phase_train_k16(smi: str) -> dict:
+    """The deepfashion preset (K = 16, 128 px, features 128, depth 4, the
+    4-scale decoder at widths 256/128/64/32, VGG to relu4_2, swap 1.0,
+    bf16) at full width, B = 64, through make_train_period: one warm
+    period, then one counted period after which the params must have moved
+    (exact launches: per step one warp of the whole batch, softmax_moments
+    on x_s, x_a and the swap's reconstruction, two decodes of 4 scales and
+    their backwards); then period ms by CUDA events, its device ms
+    (profiler) and peak memory. Seeded weights, the port's random VGG,
+    device-resident random images (DeepFashion is not on the machine)."""
+    cfg = train_config("deepfashion")
+    state, period, batches, perceptual = build_trainer(cfg, K16_BATCH, seed=SEED)
+    state, _ = period(state, batches, cfg.seed)
+    torch.cuda.synchronize()
+    before = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+    lr = warmup_cosine(cfg.optim)(state.opt_state.count)
+    reset_launch_counts()
+    state, metrics = period(state, batches, cfg.seed)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    values = {k: v.item() for k, v in metrics.items()}
+    moved = max((v - before[k]).abs().max().item() for k, v in state.model.state_dict().items())
+    del before
+    check(all(math.isfinite(v) for v in values.values()), f"train_k16 metrics not finite: {values}")
+    check(lr > 0 and moved > 0, f"train_k16 params did not move (lr {lr}, max |Δ| {moved})")
+    check(launches == K16_LAUNCHES, f"train_k16 launches {launches}, expected {K16_LAUNCHES}")
+    torch.cuda.reset_peak_memory_stats()
+    period_ms = event_ms(lambda: period(state, batches, cfg.seed), runs=5, warmup=1)
+    period_device_ms = device_ms(lambda: period(state, batches, cfg.seed), calls=2, warmup=0)
+    m = cfg.model
+    emit("train_k16", config="deepfashion", batch=K16_BATCH, dtype=str(m.dtype),
+         n_parts=m.n_parts, vgg_mode=perceptual.vgg_mode, lr=lr, metrics=values,
+         max_abs_param_change=moved, launches=launches,
+         backward_plans=[backward_plan(m.n_parts, f, (m.decoder_out_size or m.img_size)
+                                       // 2 ** (m.decoder_scales - 1 - i), K16_BATCH)
+                         for i, f in enumerate(m.decoder_features[:m.decoder_scales])],
+         period_ms=period_ms, period_device_ms=period_device_ms,
+         train_img_per_s=K16_BATCH * cfg.augment.warp_every / period_ms * 1e3,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, nvidia_smi=smi)
+    return launches
+
+
 def _timed(fn, plain, bound) -> dict:
     """ms: the wrapper's CUDA-event median over back-to-back calls (host
     included); device_ms: its kernels' own time per call (profiler);
@@ -1085,26 +1160,33 @@ def _decode_rows(scales: list[dict]) -> dict:
     return out
 
 
-def phase_staging_backward(smi: str) -> None:
-    """render_assemble's staging backward pair (K > 12 or C > 128) at
-    ``staging_backward_cases``' scales: device ms per call (profiler),
-    the wrapper's event ms, the plain closed form's device ms, and the
-    bound (bytes: the cotangent g read once, as the backward row's)."""
+def phase_wide_decodes(smi: str) -> None:
+    """render_assemble at ``wide_decode_cases``' scales (B = 64): the
+    forward (the wrapper's event ms, its device ms, the plain version's
+    event ms, the bound) and the backward kernel (device ms per call from
+    the profiler, the wrapper's event ms, the plain closed form's device
+    ms, and the bound: bytes, the cotangent g read once), beside the
+    backward's launch plan."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 50)
-    staged = render_assemble.backward_staging_launches
+    before = render_assemble.backward_launches
     rows = []
-    for label, k_, mu_, lam_, app, res, g in staging_backward_cases(gen):
-        bound, by = bound_ms(*render_backward_bound(STUDY_BATCH, k_, app.shape[-1], res))
-        dev_ms = device_ms(lambda: render_assemble_backward(mu_, lam_, app, res, res, "gauss", g))
-        rows.append({"scale": label, "k": k_, "device_ms": dev_ms,
+    for label, k_, mu_, lam_, app, res, g, kind in wide_decode_cases(gen):
+        b, _, f = app.shape
+        fwd = _timed(lambda: render_assemble(mu_, lam_, app, res, res, kind),
+                     lambda: render_assemble_plain(mu_, lam_, app, res, res, kind),
+                     render_assemble_bound(b, k_, f, res))
+        bound, by = bound_ms(*render_backward_bound(b, k_, f, res))
+        dev_ms = device_ms(lambda: render_assemble_backward(mu_, lam_, app, res, res, kind, g))
+        rows.append({"model": label, **backward_plan(k_, f, res, b), "forward": fwd,
+                     "device_ms": dev_ms,
                      "plain_device_ms": device_ms(
-                         lambda: render_assemble_vjp(mu_, lam_, app, res, res, "gauss", g)),
+                         lambda: render_assemble_vjp(mu_, lam_, app, res, res, kind, g)),
                      "ms": event_ms(lambda: render_assemble_backward(
-                         mu_, lam_, app, res, res, "gauss", g), inner=KERNEL_INNER),
+                         mu_, lam_, app, res, res, kind, g), inner=KERNEL_INNER),
                      "bound_ms": bound, "bound_by": by, "device_over_bound": dev_ms / bound})
-    check(render_assemble.backward_staging_launches > staged,
-          "timing_staging_backward: the cases did not take the staging pair")
-    emit("timing_staging_backward", batch=STUDY_BATCH, dtype="bfloat16 appearance", rows=rows,
+    check(render_assemble.backward_launches > before,
+          "timing_wide_decodes: the backward kernel did not launch")
+    emit("timing_wide_decodes", batch=STUDY_BATCH, dtype="bfloat16 appearance", rows=rows,
          nvidia_smi=smi)
 
 
@@ -1921,21 +2003,33 @@ def phase_turns(cfg, baseline: Path, smi: str) -> None:
     this, this, baseline, beside the bound. render_assemble's backward
     kernel is called with each checkout's own tile rule; a baseline
     without that kernel is timed as the plain closed form
-    (render_assemble_vjp), which the wrapper ran on the card before.
-    F.grid_sample is timed beside bilinear_sample."""
+    (render_assemble_vjp), which the wrapper ran on the card before. It is
+    timed per training decode and per scale (speed128, B = 128), per scale
+    of the celeba serving decoder (B = 256), and at ``wide_decode_cases``
+    (K > 12 or C > 128, B = 64), where this checkout's kernel is also
+    timed at each tile (a ``tile_sweep`` line). At K <= 12 and C <= 128 its
+    outputs must equal the baseline's bit for bit. F.grid_sample is timed
+    beside bilinear_sample."""
     old = _build.library(baseline / "partseg_tpu_torch" / "csrc")
     new = _build.library()
     dev = torch.device("cuda")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
     launch = _build.launch
 
-    def turns(case: str, make, bound=None, **extra) -> None:
+    def turns(case: str, make, bound=None, outs=None, **extra) -> None:
+        """``outs``: each library's outputs, by id, which its calls rewrite:
+        with both trees' there, whether they hold the same bits."""
         a, b = make(old), make(new)
         ms = [device_ms(a), device_ms(b), device_ms(b), device_ms(a)]
         if bound is not None:
             extra["bound_ms"], extra["bound_by"] = bound_ms(*bound)
+        if outs is not None and len(outs) == 2:
+            torch.cuda.synchronize()
+            extra["bit_for_bit"] = all(torch.equal(x, y)
+                                       for x, y in zip(outs[id(old)], outs[id(new)]))
         emit("turns", case=case, baseline_device_ms=[ms[0], ms[3]], device_ms=[ms[1], ms[2]],
              nvidia_smi=smi, **extra)
+        return extra.get("bit_for_bit")
 
     def softmax_call(logits):
         b, h, w, k = logits.shape
@@ -1982,45 +2076,78 @@ def phase_turns(cfg, baseline: Path, smi: str) -> None:
           render_call(tmu, tlam, tscales, int(tkind == "gauss")),
           forward_bound(tscales, TRAIN_BATCH))
 
-    cots = [torch.randn((TRAIN_BATCH, res, res, app.shape[-1]), generator=gen, device="cuda")
-            for res, app in tscales]
     rules = {id(old): _backward_rule(baseline), id(new): _backward_rule(ROOT)}
 
-    def backward_call(scales, grads):
+    def backward_call(mu_, lam_, kind, scales, grads, outs=None, tile=None):
+        """Each library's backward entry point over ``scales`` [(res, app)]
+        with its own tile rule (or ``tile``), outputs and scratch allocated
+        once; ``outs`` gets each library's outputs by id."""
         def make(lib):
             if not hasattr(lib, "partseg_render_assemble_bwd"):
-                return lambda: [render_assemble_vjp(tmu, tlam, app, res, res, tkind, g)
+                return lambda: [render_assemble_vjp(mu_, lam_, app, res, res, kind, g)
                                 for (res, app), g in zip(scales, grads)]
             tile_rule, rows_rule = rules[id(lib)]
             calls = []
             for (res, app), g in zip(scales, grads):
                 b, kk, c = app.shape
                 hw = res * res
-                tile = tile_rule(kk, c, hw)
-                rows = rows_rule(kk, c, hw, b, tile) if rows_rule else -(-hw // tile)
+                t = tile or tile_rule(kk, c, hw)
+                rows = rows_rule(kk, c, hw, b, t) if rows_rule else -(-hw // t)
                 part = torch.empty((b, max(rows, 1), kk, c + 5), device=dev)
-                outs = (torch.empty((b, kk, c), device=dev, dtype=app.dtype),
-                        torch.empty((b, kk, 2), device=dev), torch.empty((b, kk, 2, 2), device=dev))
-                calls.append((app, g, part, outs, b, kk, c, res, tile))
+                res_outs = (torch.empty((b, kk, c), device=dev, dtype=app.dtype),
+                            torch.empty((b, kk, 2), device=dev),
+                            torch.empty((b, kk, 2, 2), device=dev))
+                calls.append((app, g, part, res_outs, b, kk, c, res, t))
+            if outs is not None:
+                outs[id(lib)] = [x for call in calls for x in call[3]]
 
             def run():
-                for app, g, part, (d_app, d_mu, d_lam), b, kk, c, res, tile in calls:
-                    launch("partseg_render_assemble_bwd", dev, tmu.data_ptr(), tlam.data_ptr(),
+                for app, g, part, (d_app, d_mu, d_lam), b, kk, c, res, t in calls:
+                    launch("partseg_render_assemble_bwd", dev, mu_.data_ptr(), lam_.data_ptr(),
                            app.data_ptr(), g.data_ptr(), int(app.dtype == torch.bfloat16),
                            part.data_ptr(), d_app.data_ptr(), d_mu.data_ptr(), d_lam.data_ptr(),
-                           b, kk, c, res, res, int(tkind == "gauss"), tile, lib=lib)
+                           b, kk, c, res, res, int(kind == "gauss"), t, lib=lib)
             return run
         return make
 
     def backward_bound(scales):
-        return tuple(sum(v) for v in zip(*(render_backward_bound(TRAIN_BATCH, k, app.shape[-1], res)
+        return tuple(sum(v) for v in zip(*(render_backward_bound(app.shape[0], app.shape[1],
+                                                                 app.shape[-1], res)
                                            for res, app in scales)))
 
-    turns("render_assemble backward training decode", backward_call(tscales, cots),
-          backward_bound(tscales))
-    for scale, g in zip(tscales, cots):
-        turns(f"render_assemble backward training {scale[0]}x{scale[1].shape[-1]}",
-              backward_call([scale], [g]), backward_bound([scale]))
+    def backward_turns(label, mu_, lam_, kind, scales, grads):
+        """Turns over one decode's ``scales`` and then each scale; at K <= 12
+        and C <= 128 the outputs must equal the baseline's bit for bit."""
+        if len(scales) > 1:
+            turns(f"render_assemble backward {label} decode",
+                  backward_call(mu_, lam_, kind, scales, grads), backward_bound(scales))
+        for scale, g in zip(scales, grads):
+            res, app = scale
+            narrow = app.shape[1] <= NARROW_PARTS and app.shape[2] <= CHUNK_CHANNELS
+            outs = {}
+            same = turns(f"render_assemble backward {label} {res}x{app.shape[-1]}",
+                         backward_call(mu_, lam_, kind, [scale], [g], outs), backward_bound([scale]),
+                         outs, k=app.shape[1], batch=app.shape[0])
+            check(same is not False or not narrow,
+                  f"render_assemble backward {label} {res}x{app.shape[-1]}: differs from the "
+                  "baseline's kernel at K <= 12, C <= 128")
+
+    cots = [torch.randn((TRAIN_BATCH, res, res, app.shape[-1]), generator=gen, device="cuda")
+            for res, app in tscales]
+    backward_turns("training", tmu, tlam, tkind, tscales, cots)
+    scots = [torch.randn((BATCH, res, res, app.shape[-1]), generator=gen, device="cuda")
+             for res, app in sscales]
+    backward_turns("serving", cases[0][1], cases[0][2], cfg.render_kernel, sscales, scots)
+    del scots
+    for label, _, mu_, lam_, app, res, g, kind in wide_decode_cases(gen):
+        backward_turns(label, mu_, lam_, kind, [(res, app)], [g])
+        runs = {t: backward_call(mu_, lam_, kind, [(res, app)], [g], tile=t)(new)
+                for t in (64, 128, 256)}
+        emit("tile_sweep", case=f"render_assemble backward {label} {res}x{app.shape[-1]}",
+             rule_tile=backward_tile(app.shape[1], app.shape[2], res * res),
+             device_ms_by_tile={t: device_ms(run) for t, run in runs.items()},
+             event_ms_by_tile={t: event_ms(run, inner=KERNEL_INNER) for t, run in runs.items()},
+             nvidia_smi=smi)
 
     img, weights, basis, coords = warp_inputs(gen, torch.bfloat16)
     nw, s = img.shape[0], img.shape[1]
@@ -2494,8 +2621,9 @@ def _cuda_libraries(pid: int) -> set:
 def phase_quality(smi: str) -> dict:
     """The quality study. First, in this process and recorded for
     path_kernels, one period of each of STUDY_VARIANTS at the study's
-    128 px config and B = 64 (the flagship decode's 16²×256 scale takes the
-    render_assemble backward's staging pair). Then the reduced study
+    128 px config and B = 64 (the flagship decode's 16²×256 scale is the
+    render_assemble backward's one case of two channel chunks here, one
+    cluster of two CTAs per image, a chunk each). Then the reduced study
     through its CLI, as users run it: both variants, flagship budget
     STUDY_SMOKE_STEPS, rates measured on this card by bench children in
     turns. result.json must hold both rows with measured rates (three
@@ -2506,7 +2634,7 @@ def phase_quality(smi: str) -> dict:
     processes cannot show this in a container, where every process may
     read as one pid."""
     t0 = time.perf_counter()
-    periods = {}
+    periods, plans = {}, {}
     for name in STUDY_VARIANTS:
         cfg = study_config(name)
         state, period, batches, _ = build_trainer(cfg, STUDY_BATCH, seed=SEED)
@@ -2514,18 +2642,23 @@ def phase_quality(smi: str) -> dict:
         reset_launch_counts()
         state, metrics = period(state, batches, cfg.seed)
         torch.cuda.synchronize()
-        periods[name] = {**launch_counts(),
-                         "render_assemble_backward_staging":
-                             render_assemble.backward_staging_launches,
-                         "loss": metrics["loss"].item()}
+        m = cfg.model
+        plans[name] = [backward_plan(m.n_parts, f, (m.decoder_out_size or m.img_size)
+                                     // 2 ** (m.decoder_scales - 1 - i), STUDY_BATCH)
+                       for i, f in enumerate(m.decoder_features[:m.decoder_scales])]
+        periods[name] = {**launch_counts(), "loss": metrics["loss"].item()}
         check(math.isfinite(periods[name]["loss"]), f"quality {name}: loss not finite")
         del state, period, batches
     flag, fast = periods["flagship"], periods["speed128_r5_wf25d32"]
-    check(flag["render_assemble_backward"] == 4 and flag["render_assemble_backward_staging"] == 1
-          and flag["softmax_moments"] == 2 and flag["tps_warp"] == 1,
-          f"quality flagship period launches {flag}")
-    check(fast["render_assemble_backward_staging"] == 0 and fast["tps_warp"] == 1,
-          f"quality speed128_r5_wf25d32 period launches {fast}")
+    check(flag["render_assemble_backward"] == 4 and flag["softmax_moments"] == 2
+          and flag["tps_warp"] == 1, f"quality flagship period launches {flag}")
+    check(fast["tps_warp"] == 1, f"quality speed128_r5_wf25d32 period launches {fast}")
+    chunked = [(pl["scale"], pl["tile"], pl["rows"]) for pl in plans["flagship"]
+               if pl["chunks"] > 1]
+    check(chunked == [("16x256", 256, 0)]
+          and all(pl["groups"] == 1 for pl in plans["flagship"] + plans["speed128_r5_wf25d32"])
+          and all(pl["chunks"] == 1 for pl in plans["speed128_r5_wf25d32"]),
+          f"quality backward plans {plans}")
     in_process_s = time.perf_counter() - t0
 
     torch.cuda.empty_cache()
@@ -2555,7 +2688,7 @@ def phase_quality(smi: str) -> dict:
         check(proc.returncode in (0, 1), f"quality study exit {proc.returncode}: {tail}")
         result = json.loads(Path(base, "study", "result.json").read_text())
     rows = result["rows"]
-    emit("quality", in_process_periods=periods, in_process_s=in_process_s,
+    emit("quality", in_process_periods=periods, backward_plans=plans, in_process_s=in_process_s,
          study_s=study_s, study_exit=proc.returncode, base_steps=result["base_steps"],
          card=result["card"],
          rates={n: {k: r.get(k) for k in ("img_s_chip", "img_s_chip_runs", "rate_source",
@@ -2681,7 +2814,9 @@ def phase_path_kernels() -> dict:
     synthetic preset's K = 5 foreground slice of 6 logits, its 3-scale
     decoder and its 64² warp head, and the quality study's two 128 px
     variants at B = 64 (the flagship's 16²×256 decoder scale is the
-    render_assemble backward's staging pair). Tolerances are phase kernels',
+    render_assemble backward's case of two channel chunks), and train_k16's
+    K = 16 deepfashion period at B = 64 (every decoder scale a group of 16
+    parts). Tolerances are phase kernels',
     kernels_warp's and backward's: softmax_moments parts rtol 1e-5, μ and
     Σ atol 1e-5; render_assemble 1e-5 of the largest output; tps_warp f32
     1e-4, bf16 2⁻⁸ + 1e-4. Where the path took gradients (validate's
@@ -2692,16 +2827,21 @@ def phase_path_kernels() -> dict:
     same bits."""
     report, errs = check_path_inputs()
     seen = {(r["kernel"], r["path"]) for r in report}
-    for path, kernels in (("validate", ("softmax_moments", "render_assemble", "tps_warp")),
-                          ("golden", ("softmax_moments", "render_assemble", "tps_warp")),
-                          ("evals", ("softmax_moments",)),
-                          ("quality", ("softmax_moments", "render_assemble", "tps_warp"))):
+    every = ("softmax_moments", "render_assemble", "tps_warp")
+    for path, kernels in (("validate", every), ("golden", every), ("evals", ("softmax_moments",)),
+                          ("train_k16", every), ("quality", every)):
         check(all((k, path) in seen for k in kernels),
               f"path_kernels: {path} left no inputs of {kernels}: {sorted(seen)}")
-    staged = [r for r in report if r["kernel"] == "render_assemble" and r["path"] == "quality"
-              and r["grad"] and (r["app"][1] > TILED_PARTS or r["app"][2] > TILED_CHANNELS)]
-    check(any(r["app"] == [STUDY_BATCH, 10, 256] and r["res"] == 16 for r in staged),
-          f"path_kernels: no staging backward case at quality's 16²×256: {staged}")
+    wide = [r for r in report if r["kernel"] == "render_assemble" and r["grad"]
+            and (r["app"][1] > NARROW_PARTS or r["app"][2] > CHUNK_CHANNELS)]
+    check(any(r["path"] == "quality" and r["app"] == [STUDY_BATCH, 10, 256] and r["res"] == 16
+              for r in wide),
+          f"path_kernels: no two-chunk backward case at quality's 16²×256: {wide}")
+    k16 = {r["res"] for r in wide if r["path"] == "train_k16" and r["app"][:2] == [K16_BATCH, 16]}
+    check(k16 == {16, 32, 64, 128}, f"path_kernels: train_k16's backward scales {sorted(k16)}")
+    check(any(r["kernel"] == "softmax_moments" and r["path"] == "train_k16" and r["grad"]
+              and r["shape"][-1] == 16 for r in report),
+          "path_kernels: no K = 16 softmax_moments gradient from train_k16")
     emit("path_kernels", cases=report, tolerances=PATH_TOLERANCES)
     return errs
 
@@ -2814,8 +2954,10 @@ def main() -> int:
     trained = phase_train()
     zeros_launches = phase_train_zeros()
     phase_train_parity()
+    with recording("train_k16"):
+        k16_launches = phase_train_k16(smi)
     phase_train_loop()
-    paths = {"dp": phase_dp(smi), "spatial": phase_spatial(smi)}
+    paths = {"train_k16": k16_launches, "dp": phase_dp(smi), "spatial": phase_spatial(smi)}
     with recording("evals"):
         paths["evals"] = phase_evals(cfg, served, smi)
     with recording("export"):
@@ -2844,7 +2986,7 @@ def main() -> int:
     for name, e in phase_path_kernels().items():
         errs[name] = max(errs[name], e)
     kernels, train_img_per_s = phase_timing(cfg, served, trained, zeros_launches, errs, smi)
-    timed("timing_staging_backward", phase_staging_backward, smi)
+    timed("timing_wide_decodes", phase_wide_decodes, smi)
     paths["feed"] = timed("feed", phase_feed, smi, train_img_per_s)
     emit("tools_seconds", phases=tools_s, total=sum(tools_s.values()))
     for row in kernels:

@@ -30,22 +30,27 @@
 // the clamp was active. What bounds it: one read of the f32 cotangent g
 // (4·H·W·C bytes per image); the work is ~4 flops per element of g per part
 // (K = 10: ~10 flop/byte, below the f32 ridge), so no tensor cores.
-// A first design staged g and a in shared memory and issued two scalar
-// shared loads per FMA in both sums, then summed per-tile partials in a
-// second launch; shared memory and the two launches bounded it. The
-// register-tiled kernel (K <= 12, C <= 128, the decoders' shapes) applies
-// the forward's remedy: a lane holds a[k][its channel quad] in registers,
-// reads g straight from device memory as float4 (a few pixels ahead), and
-// keeps d_app[k][quad] in registers over all its pixels; φ rows come as
-// broadcast float4s from shared memory. The per-pixel g_φ is a sum over the
-// quads of a pixel row: a reduce-scatter butterfly of shuffles leaves each
-// lane the whole g_φ of a few parts, and that lane adds the five sums
-// Σ g_d·{dy, dx, dy², dy·dx, dx²}. An image of at most 8 tiles is one
-// thread block cluster, which sums its CTAs' partials through distributed
-// shared memory in rank order: one launch. Larger images (the serving
-// decoder's 64² and 128²) write per-block partials that a second launch
-// sums in block order. Other K and C keep that first design (the staging kernel pair). No
-// atomics anywhere: the result is the same bits on every run.
+// A design that staged g and a in shared memory issued two scalar shared
+// loads per FMA in both sums and summed per-tile partials in a second
+// launch; shared memory and the two launches bounded it. The register-tiled
+// kernel applies the forward's remedy: a lane holds
+// d_app[k][its channel quad] in registers over all its pixels, reads g
+// straight from device memory as float4 (a few pixels ahead), and takes φ
+// rows as broadcast float4s and a from shared memory. The per-pixel g_φ is
+// a sum over the quads of a pixel row: a reduce-scatter butterfly of
+// shuffles leaves each lane the whole g_φ of a few parts, and that lane adds
+// the five sums Σ g_d·{dy, dx, dy², dy·dx, dx²}. Any K and C: g_d = g_φ·dφ/dd
+// and dφ/dd does not depend on g, so the five sums are linear in g_φ, and a
+// chunk of 128 channels adds its own share of them (and owns its slice of
+// d_app); a block walks the chunks one after the other and adds their
+// shares in the same registers, so g is read once. Parts are independent in
+// every sum: K <= 12 is one group of 12 parts, larger K groups of 16 (two
+// groups, each reading g, above 16). An image of at most 8 tiles is one
+// thread block cluster per part group, which sums its CTAs' partials
+// through distributed shared memory in rank order: one launch. Larger
+// images (the decoders' 64² and 128²) write per-block partials that a
+// second launch sums in block order. No atomics anywhere: the result is
+// the same bits on every run.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -61,7 +66,6 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTargetBlocks = 1024;   // forward: blocks in all, about 8 per SM
 constexpr int kMaxParts = 32;   // the wrapper raises above this
-constexpr int kDefaultSmem = 48 * 1024;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -255,119 +259,6 @@ void launch_forward(const float* mu, const float* lam, const void* app, float* o
 
 // ----------------------------------------------------------------- backward
 
-// One block per (tile of `tile` pixels, image b). Dynamic shared memory:
-// the pixel coordinates u[tile] (y, x; first, so 8-byte aligned whatever
-// k is), a[k][c | 1], g[tile][c | 1], φ[tile][k] and g_d[tile][k], f32.
-// Writes
-// part[b][tile][k][0..c) = Σ φ·g and part[b][tile][k][c..c+5) =
-// Σ g_d·{dy, dx, dy², dy·dx, dx²}. Long sums run in four interleaved
-// partial sums, so no thread waits on one chain of dependent FMAs.
-template <typename T, bool kGauss>
-__global__ void __launch_bounds__(kThreads)
-render_assemble_bwd_partials(const float* __restrict__ mu, const float* __restrict__ lam,
-                             const T* __restrict__ app, const float* __restrict__ g,
-                             float* __restrict__ part, int k, int c, int h, int w, int tile) {
-  extern __shared__ float smem[];
-  __shared__ float par[5][kMaxParts];
-  const int cs = c | 1;
-  float2* u_s = reinterpret_cast<float2*>(smem);   // [tile]
-  float* a_s = smem + 2 * tile;    // [k][cs]
-  float* g_s = a_s + k * cs;       // [tile][cs]
-  float* phi_s = g_s + tile * cs;  // [tile][k]
-  float* gd_s = phi_s + tile * k;  // [tile][k]
-
-  const int b = blockIdx.y;
-  const int hw = h * w;
-  const int p0 = blockIdx.x * tile;
-  const int npix = min(tile, hw - p0);
-  load_parts(mu, lam, b, k, par);
-  for (int t = threadIdx.x; t < npix; t += kThreads) u_s[t] = pixel_coord(p0 + t, h, w);
-  const T* ab = app + (size_t)b * k * c;
-  for (int i = threadIdx.x; i < k * c; i += kThreads) {
-    const int p = i / c;
-    a_s[p * cs + (i - p * c)] = to_f32(ab[i]);
-  }
-  const float* gb = g + ((size_t)b * hw + p0) * c;
-  if ((c & 3) == 0 && (reinterpret_cast<uintptr_t>(gb) & 15) == 0) {
-    const float4* g4 = reinterpret_cast<const float4*>(gb);
-    const int nq = c / 4;
-    for (int i = threadIdx.x; i < npix * nq; i += kThreads) {
-      const int t = i / nq;
-      const float4 v = g4[i];
-      float* dst = g_s + t * cs + 4 * (i - t * nq);
-      dst[0] = v.x;
-      dst[1] = v.y;
-      dst[2] = v.z;
-      dst[3] = v.w;
-    }
-  } else {
-    for (int i = threadIdx.x; i < npix * c; i += kThreads) {
-      const int t = i / c;
-      g_s[t * cs + (i - t * c)] = gb[i];
-    }
-  }
-  __syncthreads();
-
-  // (pixel, part) pairs over all threads: φ, and g_d = (Σ_c g·a)·dφ/dd.
-  for (int i = threadIdx.x; i < npix * k; i += kThreads) {
-    const int t = i / k;
-    const int p = i - t * k;
-    const float2 u = u_s[t];
-    float dphi;
-    const float phi = part_phi<kGauss>(par, p, u.x - par[0][p], u.y - par[1][p], &dphi);
-    const float* gr = g_s + t * cs;
-    const float* ar = a_s + p * cs;
-    float s4[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    int ch = 0;
-    for (; ch + 4 <= c; ch += 4) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s4[j] = fmaf(gr[ch + j], ar[ch + j], s4[j]);
-    }
-    for (; ch < c; ++ch) s4[0] = fmaf(gr[ch], ar[ch], s4[0]);
-    phi_s[i] = phi;
-    gd_s[i] = ((s4[0] + s4[1]) + (s4[2] + s4[3])) * dphi;
-  }
-  __syncthreads();
-
-  const int row = c + 5;
-  float* pb = part + ((size_t)b * gridDim.x + blockIdx.x) * k * row;
-  // The five sums: a warp per part, lanes over pixels, a fixed butterfly.
-  const int lane = threadIdx.x & 31;
-  for (int p = threadIdx.x >> 5; p < k; p += kWarps) {
-    float s[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-    for (int t = lane; t < npix; t += 32) {
-      const float2 u = u_s[t];
-      const float dy = u.x - par[0][p];
-      const float dx = u.y - par[1][p];
-      const float gd = gd_s[t * k + p];
-      s[0] += gd * dy;
-      s[1] += gd * dx;
-      s[2] += gd * dy * dy;
-      s[3] += gd * dy * dx;
-      s[4] += gd * dx * dx;
-    }
-#pragma unroll
-    for (int j = 0; j < 5; ++j) {
-      for (int o = 16; o > 0; o >>= 1) s[j] += __shfl_xor_sync(0xffffffffu, s[j], o);
-      if (lane == 0) pb[p * row + c + j] = s[j];
-    }
-  }
-  // Σ_t φ·g per (part, channel), beside the sums above (both only read).
-  for (int i = threadIdx.x; i < k * c; i += kThreads) {
-    const int p = i / c;
-    const int ch = i - p * c;
-    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    int t = 0;
-    for (; t + 4 <= npix; t += 4) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        acc[j] = fmaf(phi_s[(t + j) * k + p], g_s[(t + j) * cs + ch], acc[j]);
-    }
-    for (; t < npix; ++t) acc[0] = fmaf(phi_s[t * k + p], g_s[t * cs + ch], acc[0]);
-    pb[p * row + ch] = (acc[0] + acc[1]) + (acc[2] + acc[3]);
-  }
-}
-
 // d_μ = −2Λ·(s0, s1) and d_Λ = [[s2, 2·s3], [0, s4]] of part p of image b
 // from its five sums s = Σ g_d·{dy, dx, dy², dy·dx, dx²}.
 __device__ __forceinline__ void part_grads(const float* __restrict__ lam, const float* s,
@@ -408,78 +299,89 @@ render_assemble_bwd_finish(const float* __restrict__ lam, const float* __restric
   for (int p = threadIdx.x; p < k; p += kThreads) part_grads(lam, sums[p], d_mu, d_lam, b, k, p);
 }
 
-// The register-tiled backward, for K <= 4·kBwdKQ and C <= 4·kBwdMaxQuads.
-// A pixel row is 2^kL lanes of one warp (the channel quads, 2^kL >= C/4);
-// kThreads >> kL rows walk a tile's pixels together. Each lane accumulates
-// d_app[0..K)[its quad] (da) over all its pixels in registers. Per pixel it
-// reads g[pixel][its quad] as one float4 (kPrefetch pixels ahead), adds
-// φ[t][k]·g to da (φ rows from shared memory as broadcast float4s: one load
-// per 16 FMAs), and forms its share of g_φ[t][k] = Σ_quad g·a[k][quad]
-// (a from shared memory too, so that two CTAs fit an SM's registers). A
-// reduce-scatter butterfly over the row's
-// lanes (16 values: halve, exchange the other half, add) leaves each lane
-// the whole g_φ of 16 >> min(kL, 4) parts, in a fixed order, for
-// 8 + 4 + 2 + 1 shuffles instead of 16 per step. That lane forms
-// g_d = g_φ·dφ/dd and adds g_d·{dy, dx, dy², dy·dx, dx²} for its parts.
-// A tile's φ, dφ/dd and pixel coordinates are computed once per pixel into
-// shared memory first. The block walks tiles blockIdx.x, + gridDim.x, ...
-// of image blockIdx.y, then sums its rows (shuffles within a warp, then the
-// warps in order through shared memory). With `to_part` it writes its sums
-// to part[b][blockIdx.x] for the finish kernel; otherwise its CTAs are one
-// cluster per image, and CTA r sums parts r, r + gridDim.x, ... over the
-// cluster's CTAs in rank order through distributed shared memory and writes
-// their d_app, d_μ and d_Λ: one launch.
-constexpr int kBwdKQ = 3;
-constexpr int kBwdMaxQuads = 32;
+// The register-tiled backward, for every K <= 32 and every C. A block
+// takes the parts of one group (4·kKQ of them: K <= 12 is one group of 12,
+// larger K groups of 16, blockIdx.z) and the channels in chunks of
+// 4·kBwdMaxQuads = 128 (C above 128: kChunked, kL = 5). Per chunk, a pixel
+// row is 2^kL lanes of one warp (the chunk's channel quads, 2^kL >= its
+// quads); kThreads >> kL rows walk a tile's pixels together. Each lane
+// accumulates d_app[group's parts][its quad] (da) over all its pixels in
+// registers. Per pixel it reads g[pixel][its quad] as one float4
+// (kPrefetch pixels ahead), adds φ[t][k]·g to da (φ rows from shared
+// memory as broadcast float4s: one load per 16 FMAs), and forms its share
+// of the chunk's g_φ[t][k] = Σ_quad g·a[k][quad] (a from shared memory
+// too, so that two CTAs fit an SM's registers). A reduce-scatter butterfly
+// over the row's lanes (16 values: halve, exchange the other half, add)
+// leaves each lane the chunk's g_φ of 16 >> min(kL, 4) parts, in a fixed
+// order, for 8 + 4 + 2 + 1 shuffles instead of 16 per step. That lane
+// forms g_d = g_φ·dφ/dd (dφ/dd from φ: −½φ, or −φ² for the heavy tail) and
+// adds g_d·{dy, dx, dy², dy·dx, dx²} for its parts. The five sums are
+// linear in g_φ, so the shares of several chunks add up in the same
+// registers, and those of chunks in other CTAs where the five sums meet:
+// one read of g for K <= 16, one per group above. A tile's φ and pixel
+// coordinates are computed once per chunk into shared memory first.
+//
+// The grid: x = shares × chunk_ctas CTAs per (image, group), y = image,
+// z = group. CTA x walks tiles x % shares, + shares, ... and chunks
+// x / shares, + chunk_ctas, ... After each chunk it sums its rows' da
+// (shuffles within a warp, then the warps in order through shared memory),
+// and its five sums in the same pass after the last. With `to_part`
+// (chunk_ctas 1) it
+// writes them to part[b][blockIdx.x] for the finish kernel. Otherwise the
+// CTAs of an (image, group) are one cluster: the `shares` CTAs of a chunk
+// sum its d_app over themselves in rank order through distributed shared
+// memory, CTA s writing parts s, s + shares, ...; then every CTA sums the
+// five sums of parts rank, rank + cluster size, ... over all ranks in
+// rank order and writes their d_μ and d_Λ: one launch.
+constexpr int kBwdMaxQuads = 32;    // channel quads of a chunk
+constexpr int kBwdGroupKQ = 4;      // part quads of a group for K > 12
 constexpr int kBwdMaxCluster = 8;
 constexpr int kBwdTile = 256;       // the most pixels of a tile
 constexpr int kBwdResident = 264;   // CTAs the H100 holds at once (two to an SM)
-constexpr int kPrefetch = 2;        // g loads in flight per lane
 
-template <typename T, bool kGauss, int kL>
+template <typename T, bool kGauss, int kKQ, int kL, bool kChunked>
 __global__ void __launch_bounds__(kThreads, 2)
 render_assemble_bwd_tiled(const float* __restrict__ mu, const float* __restrict__ lam,
                           const T* __restrict__ app, const float* __restrict__ g,
                           float* __restrict__ part, T* __restrict__ d_app,
                           float* __restrict__ d_mu, float* __restrict__ d_lam, int k, int c,
-                          int h, int w, int tile, int to_part) {
-  constexpr int kP = 4 * kBwdKQ;
+                          int h, int w, int tile, int to_part, int chunk_ctas) {
+  constexpr int kP = 4 * kKQ;
   constexpr int kQX = 1 << kL;
   constexpr int kRows = kThreads >> kL;
   constexpr int kV = 16;                        // g_φ values per lane, padded
   constexpr int kSteps = kL < 4 ? kL : 4;       // halving steps of the butterfly
   constexpr int kHeld = kV >> kSteps;           // parts a lane holds after them
+  constexpr int kChunk = 4 * kBwdMaxQuads;      // channels of a chunk
+  constexpr int kPrefetch = kKQ == 3 ? 2 : 3;   // g loads in flight per lane (3 measured faster
+                                                 // for a group of 16 parts, 2 for 12)
+  static_assert(kP <= kV, "a group's g_φ fills at most the butterfly's 16 values");
+  static_assert(kL == 5 || !kChunked, "more than one chunk has 32 quads to a row");
   __shared__ float par[5][kMaxParts];
-  __shared__ float4 phi_s[kBwdTile * kBwdKQ];   // φ[t][0..kP), zeros beyond k and npix
-  __shared__ float4 dphi_s[kBwdTile * kBwdKQ];  // dφ/dd, the same layout
+  __shared__ float4 phi_s[kBwdTile * kKQ];      // φ[t][0..kP), zeros beyond the group and npix
   __shared__ float2 u_s[kBwdTile];              // pixel-centre coordinates (y, x)
-  __shared__ float4 a_s[kP][kBwdMaxQuads];      // a[k][quad], zeros beyond k and c
+  __shared__ float4 a_s[kP][kBwdMaxQuads];      // a[k][quad], zeros beyond the group and chunk
   __shared__ float4 res_app[kP][kBwdMaxQuads];  // the block's Σ φ·g per (part, quad)
   __shared__ float res_s5[kV][5];               // the block's five sums per part
 
   const int b = blockIdx.y;
+  const int p_lo = kKQ == 3 ? 0 : blockIdx.z * kP;   // the group's first part (K <= 12: one)
+  const int kg = kKQ == 3 ? k : min(kP, k - p_lo);  // the group's parts
   const int hw = h * w;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
+  const int warp = tid >> 5;
   const int q = tid & (kQX - 1);
   const int r = tid >> kL;
-  const int nq = (c + 3) / 4;
+  const int chunks = kChunked ? (c + kChunk - 1) / kChunk : 1;
+  const int ctas = kChunked ? chunk_ctas : 1;        // CTAs of an image taking chunks side by side
+  const int shares = gridDim.x / ctas;               // CTAs of an image taking tiles side by side
+  const int share = kChunked ? blockIdx.x % shares : blockIdx.x;
+  const int first = kChunked ? blockIdx.x / shares : 0;   // this CTA's first chunk
   const bool vec = (c & 3) == 0 && (reinterpret_cast<uintptr_t>(g) & 15) == 0;
+  const float* mu_y = par[0] + p_lo;                 // the group's means
+  const float* mu_x = par[1] + p_lo;
   load_parts(mu, lam, b, k, par);
-  for (int i = tid; i < kP * kBwdMaxQuads; i += kThreads) {
-    const int p = i / kBwdMaxQuads;
-    const int c0 = 4 * (i - p * kBwdMaxQuads);
-    float e[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    if (p < k) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (c0 + j < c) e[j] = to_f32(app[((size_t)b * k + p) * c + c0 + j]);
-    }
-    a_s[p][c0 / 4] = make_float4(e[0], e[1], e[2], e[3]);
-  }
-  float4 da[kP];
-#pragma unroll
-  for (int p = 0; p < kP; ++p) da[p] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   float s5[kHeld][5];
 #pragma unroll
   for (int i = 0; i < kHeld; ++i)
@@ -488,247 +390,276 @@ render_assemble_bwd_tiled(const float* __restrict__ mu, const float* __restrict_
   int off = 0;   // the first part this lane holds after the butterfly
 #pragma unroll
   for (int st = 0; st < kSteps; ++st) off += ((q >> st) & 1) * (kV >> (st + 1));
-  __syncthreads();
-
+  const float* app_f = reinterpret_cast<const float*>(&res_app[0][0]);
   float* phi_f = reinterpret_cast<float*>(phi_s);
-  float* dphi_f = reinterpret_cast<float*>(dphi_s);
-  for (int p0 = blockIdx.x * tile; p0 < hw; p0 += gridDim.x * tile) {
-    const int npix = min(tile, hw - p0);
-    for (int t = tid; t < tile; t += kThreads) {   // a pixel per thread, all its parts
-      const float2 u = pixel_coord(p0 + min(t, npix - 1), h, w);
-      u_s[t] = u;
-#pragma unroll
-      for (int p = 0; p < kP; ++p) {
-        float phi = 0.0f, dphi = 0.0f;
-        if (t < npix && p < k)
-          phi = part_phi<kGauss>(par, p, u.x - par[0][p], u.y - par[1][p], &dphi);
-        phi_f[t * kP + p] = phi;
-        dphi_f[t * kP + p] = dphi;
-      }
-    }
-    __syncthreads();
-    const float* gb = g + ((size_t)b * hw + p0) * c + 4 * q;
-    // g[pixel t0 + r] of this lane's quad; 0 past the tile or the channels.
-    auto load_g = [&](int t0) {
-      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (t0 + r < npix && q < nq) {
-        const float* gp = gb + (size_t)(t0 + r) * c;
-        if (vec) {
-          v = __ldg(reinterpret_cast<const float4*>(gp));
-        } else {
-          float e[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            if (4 * q + j < c) e[j] = __ldg(gp + j);
-          v = make_float4(e[0], e[1], e[2], e[3]);
-        }
-      }
-      return v;
-    };
-    float4 gq[kPrefetch];
-#pragma unroll
-    for (int i = 0; i < kPrefetch; ++i) gq[i] = load_g(i * kRows);
-    // Every row runs the same trip count, so the shuffles see whole warps;
-    // a row past the tile's end carries g = 0.
-    for (int base = 0; base < npix; base += kPrefetch * kRows) {
-#pragma unroll
-      for (int i = 0; i < kPrefetch; ++i) {
-        const int t0 = base + i * kRows;
-        if (t0 >= npix) continue;   // the same for the whole block
-        const float4 g4 = gq[i];
-        gq[i] = load_g(t0 + kPrefetch * kRows);
-        const int t = t0 + r < npix ? t0 + r : 0;
-        float v[kV];
-        const float4* ph = phi_s + t * kBwdKQ;
-#pragma unroll
-        for (int kq = 0; kq < kBwdKQ; ++kq) {
-          const float4 f = ph[kq];
-          const float fs[4] = {f.x, f.y, f.z, f.w};
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int p = 4 * kq + j;
-            const float4 a = a_s[p][q];
-            v[p] = fmaf(g4.x, a.x, fmaf(g4.y, a.y, fmaf(g4.z, a.z, g4.w * a.w)));
-            da[p].x = fmaf(fs[j], g4.x, da[p].x);
-            da[p].y = fmaf(fs[j], g4.y, da[p].y);
-            da[p].z = fmaf(fs[j], g4.z, da[p].z);
-            da[p].w = fmaf(fs[j], g4.w, da[p].w);
-          }
-        }
-#pragma unroll
-        for (int p = kP; p < kV; ++p) v[p] = 0.0f;
-        // Reduce-scatter over the row's lanes: at step st a lane keeps the
-        // half of its values chosen by bit st of q and adds its partner's.
-        if constexpr (kSteps > 0) halve<8>(v, q & 1, 1);
-        if constexpr (kSteps > 1) halve<4>(v, (q >> 1) & 1, 2);
-        if constexpr (kSteps > 2) halve<2>(v, (q >> 2) & 1, 4);
-        if constexpr (kSteps > 3) halve<1>(v, (q >> 3) & 1, 8);
-        if constexpr (kL == 5) v[0] += __shfl_xor_sync(0xffffffffu, v[0], 16);   // l, l ^ 16 agree
-        const float2 u = u_s[t];
-#pragma unroll
-        for (int e = 0; e < kHeld; ++e) {
-          const int p = off + e;
-          if (p < k) {
-            const float gd = v[e] * dphi_f[t * kP + p];
-            const float dy = u.x - par[0][p];
-            const float dx = u.y - par[1][p];
-            s5[e][0] = fmaf(gd, dy, s5[e][0]);
-            s5[e][1] = fmaf(gd, dx, s5[e][1]);
-            s5[e][2] = fmaf(gd * dy, dy, s5[e][2]);
-            s5[e][3] = fmaf(gd * dy, dx, s5[e][3]);
-            s5[e][4] = fmaf(gd * dx, dx, s5[e][4]);
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
 
-  // The block's rows: a butterfly over the rows within a warp, then the
-  // warps in order through shared memory.
+  // Every CTA of a cluster runs the same trips (a chunk past the last one
+  // is empty), so the cluster barriers below pair up.
+  const int trips = kChunked ? (chunks + ctas - 1) / ctas : 1;
+  for (int trip = 0, chunk = first; trip < trips; ++trip, chunk += ctas) {
+    const bool last = trip == trips - 1;
+    const int c0 = chunk * kChunk;
+    const int cc = !kChunked ? c : chunk < chunks ? min(kChunk, c - c0) : 0;   // its channels
+    const int nq = (cc + 3) / 4;
+    for (int i = tid; i < kP * kBwdMaxQuads; i += kThreads) {
+      const int p = i / kBwdMaxQuads;
+      const int c4 = 4 * (i - p * kBwdMaxQuads);
+      float e[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      if (p < kg) {
+        const T* ap = app + ((size_t)b * k + p_lo + p) * c + c0 + c4;
 #pragma unroll
-  for (int m = kQX; m < 32; m <<= 1) {
-#pragma unroll
-    for (int p = 0; p < kP; ++p) {
-      da[p].x += __shfl_xor_sync(0xffffffffu, da[p].x, m);
-      da[p].y += __shfl_xor_sync(0xffffffffu, da[p].y, m);
-      da[p].z += __shfl_xor_sync(0xffffffffu, da[p].z, m);
-      da[p].w += __shfl_xor_sync(0xffffffffu, da[p].w, m);
+        for (int j = 0; j < 4; ++j)
+          if (c4 + j < cc) e[j] = to_f32(ap[j]);
+      }
+      a_s[p][c4 / 4] = make_float4(e[0], e[1], e[2], e[3]);
     }
+    float4 da[kP];
 #pragma unroll
-    for (int e = 0; e < kHeld; ++e)
+    for (int p = 0; p < kP; ++p) da[p] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    __syncthreads();
+
+    for (int p0 = share * tile; (!kChunked || cc > 0) && p0 < hw; p0 += shares * tile) {
+      const int npix = min(tile, hw - p0);
+      for (int t = tid; t < tile; t += kThreads) {   // a pixel per thread, all its parts
+        const float2 u = pixel_coord(p0 + min(t, npix - 1), h, w);
+        u_s[t] = u;
 #pragma unroll
-      for (int j = 0; j < 5; ++j) s5[e][j] += __shfl_xor_sync(0xffffffffu, s5[e][j], m);
-  }
-  const int warp = tid >> 5;
-  for (int wi = 0; wi < kWarps; ++wi) {
-    if (warp == wi && lane < kQX) {
+        for (int p = 0; p < kP; ++p) {
+          float phi = 0.0f, dphi;
+          if (t < npix && p < kg)
+            phi = part_phi<kGauss>(par, p_lo + p, u.x - mu_y[p], u.y - mu_x[p], &dphi);
+          phi_f[t * kP + p] = phi;
+        }
+      }
+      __syncthreads();
+      const float* gb = g + ((size_t)b * hw + p0) * c + c0 + 4 * q;
+      // g[pixel t0 + r] of this lane's quad; 0 past the tile or the chunk.
+      auto load_g = [&](int t0) {
+        float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (t0 + r < npix && q < nq) {
+          const float* gp = gb + (size_t)(t0 + r) * c;
+          if (vec) {
+            v = __ldg(reinterpret_cast<const float4*>(gp));
+          } else {
+            float e[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              if (4 * q + j < cc) e[j] = __ldg(gp + j);
+            v = make_float4(e[0], e[1], e[2], e[3]);
+          }
+        }
+        return v;
+      };
+      float4 gq[kPrefetch];
+#pragma unroll
+      for (int i = 0; i < kPrefetch; ++i) gq[i] = load_g(i * kRows);
+      // Every row runs the same trip count, so the shuffles see whole warps;
+      // a row past the tile's end carries g = 0.
+      for (int base = 0; base < npix; base += kPrefetch * kRows) {
+#pragma unroll
+        for (int i = 0; i < kPrefetch; ++i) {
+          const int t0 = base + i * kRows;
+          if (t0 >= npix) continue;   // the same for the whole block
+          const float4 g4 = gq[i];
+          gq[i] = load_g(t0 + kPrefetch * kRows);
+          const int t = t0 + r < npix ? t0 + r : 0;
+          float v[kV];
+          const float4* ph = phi_s + t * kKQ;
+#pragma unroll
+          for (int kq = 0; kq < kKQ; ++kq) {
+            const float4 f = ph[kq];
+            const float fs[4] = {f.x, f.y, f.z, f.w};
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const int p = 4 * kq + j;
+              const float4 a = a_s[p][q];
+              v[p] = fmaf(g4.x, a.x, fmaf(g4.y, a.y, fmaf(g4.z, a.z, g4.w * a.w)));
+              da[p].x = fmaf(fs[j], g4.x, da[p].x);
+              da[p].y = fmaf(fs[j], g4.y, da[p].y);
+              da[p].z = fmaf(fs[j], g4.z, da[p].z);
+              da[p].w = fmaf(fs[j], g4.w, da[p].w);
+            }
+          }
+#pragma unroll
+          for (int p = kP; p < kV; ++p) v[p] = 0.0f;
+          // Reduce-scatter over the row's lanes: at step st a lane keeps the
+          // half of its values chosen by bit st of q and adds its partner's.
+          if constexpr (kSteps > 0) halve<8>(v, q & 1, 1);
+          if constexpr (kSteps > 1) halve<4>(v, (q >> 1) & 1, 2);
+          if constexpr (kSteps > 2) halve<2>(v, (q >> 2) & 1, 4);
+          if constexpr (kSteps > 3) halve<1>(v, (q >> 3) & 1, 8);
+          if constexpr (kL == 5) v[0] += __shfl_xor_sync(0xffffffffu, v[0], 16);   // l, l ^ 16 agree
+          const float2 u = u_s[t];
+#pragma unroll
+          for (int e = 0; e < kHeld; ++e) {
+            const int p = off + e;
+            if (p < kg) {
+              const float phi = phi_f[t * kP + p];
+              const float gd = v[e] * (kGauss ? -0.5f * phi : -(phi * phi));
+              const float dy = u.x - mu_y[p];
+              const float dx = u.y - mu_x[p];
+              s5[e][0] = fmaf(gd, dy, s5[e][0]);
+              s5[e][1] = fmaf(gd, dx, s5[e][1]);
+              s5[e][2] = fmaf(gd * dy, dy, s5[e][2]);
+              s5[e][3] = fmaf(gd * dy, dx, s5[e][3]);
+              s5[e][4] = fmaf(gd * dx, dx, s5[e][4]);
+            }
+          }
+        }
+      }
+      __syncthreads();
+    }
+
+    // The block's rows: a butterfly over the rows within a warp, then the
+    // warps in order through shared memory; da after every chunk, and the
+    // five sums with the last.
+#pragma unroll
+    for (int m = kQX; m < 32; m <<= 1) {
 #pragma unroll
       for (int p = 0; p < kP; ++p) {
-        float4& dst = res_app[p][q];
-        dst = wi == 0 ? da[p] : make_float4(dst.x + da[p].x, dst.y + da[p].y, dst.z + da[p].z,
-                                            dst.w + da[p].w);
+        da[p].x += __shfl_xor_sync(0xffffffffu, da[p].x, m);
+        da[p].y += __shfl_xor_sync(0xffffffffu, da[p].y, m);
+        da[p].z += __shfl_xor_sync(0xffffffffu, da[p].z, m);
+        da[p].w += __shfl_xor_sync(0xffffffffu, da[p].w, m);
       }
-      if (lane < 16) {   // with 32 lanes to a row, lanes l and l ^ 16 hold the same sums
+      if (last) {
 #pragma unroll
         for (int e = 0; e < kHeld; ++e)
 #pragma unroll
-          for (int j = 0; j < 5; ++j)
-            res_s5[off + e][j] = wi == 0 ? s5[e][j] : res_s5[off + e][j] + s5[e][j];
+          for (int j = 0; j < 5; ++j) s5[e][j] += __shfl_xor_sync(0xffffffffu, s5[e][j], m);
       }
     }
-    __syncthreads();
-  }
-
-  const float* app_f = reinterpret_cast<const float*>(&res_app[0][0]);
-  if (to_part) {
-    const int row = c + 5;
-    float* pb = part + ((size_t)b * gridDim.x + blockIdx.x) * k * row;
-    for (int i = tid; i < k * c; i += kThreads) {
-      const int p = i / c;
-      const int ch = i - p * c;
-      pb[p * row + ch] = app_f[(p * kBwdMaxQuads) * 4 + ch];
-    }
-    for (int i = tid; i < k * 5; i += kThreads) {
-      const int p = i / 5;
-      pb[p * row + c + (i - p * 5)] = res_s5[p][i - p * 5];
-    }
-    return;
-  }
-  cg::cluster_group cluster = cg::this_cluster();
-  cluster.sync();
-  const int cs = (int)cluster.num_blocks();
-  const int rank = (int)cluster.block_rank();
-  const int mine = (k - rank + cs - 1) / cs;   // parts rank, rank + cs, ...
-  for (int i = tid; i < mine * c; i += kThreads) {
-    const int p = rank + cs * (i / c);
-    const int ch = i % c;
-    float acc = 0.0f;
-    for (int rk = 0; rk < cs; ++rk)
-      acc += cluster.map_shared_rank(app_f, rk)[(p * kBwdMaxQuads) * 4 + ch];
-    store_as(d_app + ((size_t)b * k + p) * c + ch, acc);
-  }
-  for (int i = tid; i < mine; i += kThreads) {
-    const int p = rank + cs * i;
-    float sm[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-    for (int rk = 0; rk < cs; ++rk) {
-      const float* rs = cluster.map_shared_rank(&res_s5[p][0], rk);
+    for (int wi = 0; wi < kWarps; ++wi) {
+      if (warp == wi && lane < kQX) {
 #pragma unroll
-      for (int j = 0; j < 5; ++j) sm[j] += rs[j];
+        for (int p = 0; p < kP; ++p) {
+          float4& dst = res_app[p][q];
+          dst = wi == 0 ? da[p] : make_float4(dst.x + da[p].x, dst.y + da[p].y,
+                                              dst.z + da[p].z, dst.w + da[p].w);
+        }
+        if (last && lane < 16) {   // with 32 lanes to a row, lanes l and l ^ 16 agree
+#pragma unroll
+          for (int e = 0; e < kHeld; ++e)
+#pragma unroll
+            for (int j = 0; j < 5; ++j)
+              res_s5[off + e][j] = wi == 0 ? s5[e][j] : res_s5[off + e][j] + s5[e][j];
+        }
+      }
+      __syncthreads();
     }
-    part_grads(lam, sm, d_mu, d_lam, b, k, p);
+    if (to_part) {
+      float* pb = part + ((size_t)b * gridDim.x + blockIdx.x) * k * (c + 5);
+      for (int i = tid; i < kg * cc; i += kThreads) {
+        const int p = i / cc;
+        const int ch = i - p * cc;
+        pb[(p_lo + p) * (c + 5) + c0 + ch] = app_f[(p * kBwdMaxQuads) * 4 + ch];
+      }
+      for (int i = tid; last && i < kg * 5; i += kThreads) {
+        const int p = i / 5;
+        pb[(p_lo + p) * (c + 5) + c + (i - p * 5)] = res_s5[p][i - p * 5];
+      }
+      continue;
+    }
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();
+    const int mine = (kg - share + shares - 1) / shares;   // parts share, share + shares, ...
+    const int rank0 = first * shares;                      // the chunk's first rank
+    for (int i = tid; i < mine * cc; i += kThreads) {
+      const int p = share + shares * (i / cc);
+      const int ch = i % cc;
+      float acc = 0.0f;
+      for (int sh = 0; sh < shares; ++sh)
+        acc += cluster.map_shared_rank(app_f, rank0 + sh)[(p * kBwdMaxQuads) * 4 + ch];
+      store_as(d_app + ((size_t)b * k + p_lo + p) * c + c0 + ch, acc);
+    }
+    if (last) {   // the five sums of parts rank, rank + cluster size, ... over every rank
+      const int cs = (int)cluster.num_blocks();
+      const int rank = (int)cluster.block_rank();
+      for (int p = rank + cs * tid; p < kg; p += cs * kThreads) {
+        float sm[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+        for (int rk = 0; rk < cs; ++rk) {
+          const float* rs = cluster.map_shared_rank(&res_s5[p][0], rk);
+#pragma unroll
+          for (int j = 0; j < 5; ++j) sm[j] += rs[j];
+        }
+        part_grads(lam, sm, d_mu, d_lam, b, k, p_lo + p);
+      }
+    }
+    cluster.sync();   // no CTA rewrites res_app or leaves while another reads it
   }
-  cluster.sync();   // no CTA leaves while another reads its shared memory
 }
 
-template <typename T, bool kGauss, int kL>
+template <typename T, bool kGauss, int kKQ, int kL, bool kChunked>
 cudaError_t launch_tiled(const float* mu, const float* lam, const void* app, const float* g,
                          float* part, void* d_app, float* d_mu, float* d_lam, int b, int k,
                          int c, int h, int w, int tile, cudaStream_t stream) {
   const int tiles = (h * w + tile - 1) / tile;
-  auto kernel = render_assemble_bwd_tiled<T, kGauss, kL>;
+  const int groups = (k + 4 * kKQ - 1) / (4 * kKQ);
+  auto kernel = render_assemble_bwd_tiled<T, kGauss, kKQ, kL, kChunked>;
   const T* a = static_cast<const T*>(app);
   T* da = static_cast<T*>(d_app);
   if (tiles > kBwdMaxCluster) {   // partials, then the fixed-order finish
     const int shares = min(tiles, max(1, kTargetBlocks / b));
-    kernel<<<dim3(shares, b), kThreads, 0, stream>>>(mu, lam, a, g, part, da, d_mu, d_lam, k, c,
-                                                     h, w, tile, 1);
+    kernel<<<dim3(shares, b, groups), kThreads, 0, stream>>>(mu, lam, a, g, part, da, d_mu,
+                                                             d_lam, k, c, h, w, tile, 1, 1);
     render_assemble_bwd_finish<T><<<b, kThreads, 0, stream>>>(lam, part, da, d_mu, d_lam, k, c,
                                                               shares);
     return cudaGetLastError();
   }
-  // A cluster of CTAs per image, as many as the card holds at once.
-  const int cs = min(tiles, max(1, kBwdResident / b));
+  // A cluster of CTAs per (image, group), as many as the card holds at
+  // once: tiles side by side, then chunks side by side in what is left.
+  const int fit = max(1, kBwdResident / (b * groups));
+  const int shares = min(tiles, fit);
+  const int chunks = (c + 4 * kBwdMaxQuads - 1) / (4 * kBwdMaxQuads);
+  const int ctas = kChunked ? max(1, min(chunks, min(kBwdMaxCluster, fit) / shares)) : 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cs, b);
+  cfg.gridDim = dim3(shares * ctas, b, groups);
   cfg.blockDim = dim3(kThreads);
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.x = shares * ctas;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, mu, lam, a, g, part, da, d_mu, d_lam,
-                                             k, c, h, w, tile, 0);
+                                             k, c, h, w, tile, 0, ctas);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-// The rule, mirrored by partops/kernels/render_assemble.py
-// (backward_plan): the register-tiled kernel takes K <= 12 and C <= 128,
-// with rows of 2^kL lanes, 2^kL the least power of two >= C/4; the staging
-// kernel pair takes the rest.
+// The rule, mirrored by partops/kernels/render_assemble.py (backward_tile,
+// backward_partial_rows, backward_groups, backward_chunks): K <= 12 takes
+// one group of 12 parts, larger K groups of 16; rows of 2^kL lanes, 2^kL
+// the least power of two >= the quads of a chunk (at most 32: 128
+// channels, and above that chunks of them).
+template <typename T, bool kGauss, int kKQ>
+cudaError_t launch_group(const float* mu, const float* lam, const void* app, const float* g,
+                         float* part, void* d_app, float* d_mu, float* d_lam, int b, int k,
+                         int c, int h, int w, int tile, cudaStream_t stream) {
+  const int nq = (c + 3) / 4;
+#define PARTSEG_TILED(L, CHUNKED)                                                           \
+  launch_tiled<T, kGauss, kKQ, L, CHUNKED>(mu, lam, app, g, part, d_app, d_mu, d_lam, b, k, \
+                                           c, h, w, tile, stream)
+  if (nq <= 1) return PARTSEG_TILED(0, false);
+  if (nq <= 2) return PARTSEG_TILED(1, false);
+  if (nq <= 4) return PARTSEG_TILED(2, false);
+  if (nq <= 8) return PARTSEG_TILED(3, false);
+  if (nq <= 16) return PARTSEG_TILED(4, false);
+  if (nq <= kBwdMaxQuads) return PARTSEG_TILED(5, false);
+  return PARTSEG_TILED(5, true);
+#undef PARTSEG_TILED
+}
+
 template <typename T, bool kGauss>
 cudaError_t launch_backward(const float* mu, const float* lam, const void* app, const float* g,
                             float* part, void* d_app, float* d_mu, float* d_lam, int b, int k,
                             int c, int h, int w, int tile, cudaStream_t stream) {
-  const int nq = (c + 3) / 4;
-  if (k <= 4 * kBwdKQ && nq <= kBwdMaxQuads) {
-#define PARTSEG_TILED(L) \
-  launch_tiled<T, kGauss, L>(mu, lam, app, g, part, d_app, d_mu, d_lam, b, k, c, h, w, tile, stream)
-    if (nq <= 1) return PARTSEG_TILED(0);
-    if (nq <= 2) return PARTSEG_TILED(1);
-    if (nq <= 4) return PARTSEG_TILED(2);
-    if (nq <= 8) return PARTSEG_TILED(3);
-    if (nq <= 16) return PARTSEG_TILED(4);
-    return PARTSEG_TILED(5);
-#undef PARTSEG_TILED
-  }
-  const int tiles = (h * w + tile - 1) / tile;
-  const size_t smem = ((size_t)k * (c | 1) + (size_t)tile * ((c | 1) + 2 * k + 2)) * sizeof(float);
-  auto partials = render_assemble_bwd_partials<T, kGauss>;
-  // Static and dynamic shared memory above 48 KB together need the opt-in.
-  if (smem + sizeof(float) * 5 * kMaxParts > kDefaultSmem) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        partials, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  partials<<<dim3(tiles, b), kThreads, smem, stream>>>(
-      mu, lam, static_cast<const T*>(app), g, part, k, c, h, w, tile);
-  render_assemble_bwd_finish<T><<<b, kThreads, 0, stream>>>(
-      lam, part, static_cast<T*>(d_app), d_mu, d_lam, k, c, tiles);
-  return cudaGetLastError();
+  if (k <= 12)
+    return launch_group<T, kGauss, 3>(mu, lam, app, g, part, d_app, d_mu, d_lam, b, k, c, h, w,
+                                      tile, stream);
+  return launch_group<T, kGauss, kBwdGroupKQ>(mu, lam, app, g, part, d_app, d_mu, d_lam, b, k, c,
+                                              h, w, tile, stream);
 }
 
 }  // namespace
@@ -752,13 +683,13 @@ extern "C" int partseg_render_assemble(const float* mu, const float* lam, const 
   return static_cast<int>(cudaGetLastError());
 }
 
-// The backward. g: [B, H, W, C] f32; part: [B, tiles, K, C + 5] f32 scratch
-// with tiles = ceil(H·W / tile); d_app: [B, K, C] in the appearance dtype;
-// d_mu: [B, K, 2] f32; d_lam: [B, K, 2, 2] f32. The caller keeps K <= 32,
-// B <= 65535 and (K·(C | 1) + tile·((C | 1) + 2K + 2))·4 bytes, with the
-// 640 static ones, within the block's shared memory (above 48 KB in all it
-// is opted in here). Two launches on `stream`;
-// allocates nothing, does not synchronise. Returns the first CUDA error.
+// The backward. g: [B, H, W, C] f32; part: [B, rows, K, C + 5] f32 scratch
+// (rows: none where one cluster takes an image, ceil(H·W / tile) tiles at
+// most 8; else min(tiles, 1024 / B), see backward_partial_rows); d_app:
+// [B, K, C] in the appearance dtype; d_mu: [B, K, 2] f32; d_lam:
+// [B, K, 2, 2] f32. The caller keeps K <= 32 and B <= 65535. One launch,
+// or two with partials, on `stream`; allocates nothing, does not
+// synchronise. Returns the first CUDA error.
 extern "C" int partseg_render_assemble_bwd(const float* mu, const float* lam, const void* app,
                                            const float* g, int app_is_bf16, float* part,
                                            void* d_app, float* d_mu, float* d_lam, int b, int k,

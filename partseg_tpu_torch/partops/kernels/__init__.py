@@ -3,8 +3,7 @@ wrapper validates its inputs, runs the plain PyTorch version on a CPU
 tensor, and launches its hand-written kernel (built from ``csrc/`` at
 first use) on a CUDA tensor, counting forward launches in its
 ``launches`` attribute (and render_assemble its backward kernel's in
-``backward_launches``, of which ``backward_staging_launches`` took the
-staging pair). Each is an autograd Function."""
+``backward_launches``). Each is an autograd Function."""
 
 from partseg_tpu_torch.partops.kernels.bilinear_sample import (
     bilinear_sample_fused,
@@ -29,7 +28,6 @@ def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
     render_assemble.backward_launches = 0
-    render_assemble.backward_staging_launches = 0
 
 
 __all__ = [

@@ -13,12 +13,16 @@ computes out[b, u, c] = Σ_k φ_k(u)·a[b, k, c] without writing the
 - its backward is the closed form of the JAX ``_bwd``: it recomputes φ,
   and puts the whole off-diagonal Λ cotangent on ``[..., 0, 1]`` because
   the forward reads only that entry (doubled). On a CUDA tensor the
-  backward kernels of the same file compute it (one launch where a
-  thread block cluster takes a whole image, else per-block partial sums
-  and a fixed-order sum over them: no atomics, so the result is the same
-  on every run); on a CPU tensor ``render_assemble_vjp``, the plain
-  version, does. ``render_assemble.backward_launches`` counts the
-  wrapper's calls that launch them.
+  backward kernel of the same file computes it, for every K and C the
+  wrapper takes: a block walks the channels in chunks of CHUNK_CHANNELS
+  and the parts in groups (one of K <= NARROW_PARTS, else of GROUP_PARTS),
+  and adds each chunk's share of the five sums Σ g_d·{dy, dx, dy², dy·dx,
+  dx²}, which are linear in g_φ (one launch where a thread block cluster
+  takes a whole image, else per-block partial sums and a fixed-order sum
+  over them: no atomics, so the result is the same on every run); on a
+  CPU tensor ``render_assemble_vjp``, the plain version, does.
+  ``render_assemble.backward_launches`` counts the wrapper's calls that
+  launch it.
 """
 
 from __future__ import annotations
@@ -32,54 +36,47 @@ from partseg_tpu_torch.partops.render import RENDER_KERNELS, render_gaussians
 
 MAX_PARTS = 32           # kMaxParts in csrc/render_assemble.cu
 MAX_BATCH = 65535        # gridDim.y
-# The backward has two kernels. The register-tiled one takes K <= TILED_PARTS
-# and C <= TILED_CHANNELS: an image of at most MAX_CLUSTER tiles is one
-# thread block cluster (one launch), a larger one is walked by
-# min(tiles, TARGET_BLOCKS // B) blocks whose partial sums a second launch
-# adds up. Otherwise the staging kernel pair stages a[K, C | 1], and
-# g[tile, C | 1], φ[tile, K], g_d[tile, K] and the pixel coordinates
-# [tile, 2] (f32) per block in shared memory, beside 5·MAX_PARTS floats of
-# static parameters; its tile keeps within SMEM_BUDGET (three blocks to an
-# SM), and takes up to the H100's 227 KB per block (an opt-in above 48 KB)
-# only at its least, 32.
-TILED_PARTS = 12         # 4·kBwdKQ
-TILED_CHANNELS = 128     # 4·kBwdMaxQuads
+# The backward kernel: K <= NARROW_PARTS is one group of parts, larger K
+# groups of GROUP_PARTS (blockIdx.z); the channels go in chunks of
+# CHUNK_CHANNELS. An image of at most MAX_CLUSTER tiles is one thread block
+# cluster per group (one launch; its CTAs take tiles, and chunks, side by
+# side); a larger one is walked by min(tiles, TARGET_BLOCKS // B) blocks per
+# group, each taking the chunks one after the other, whose partial sums a
+# second launch adds up.
+NARROW_PARTS = 12        # 4·3: the group of K <= 12
+GROUP_PARTS = 16         # 4·kBwdGroupKQ
+CHUNK_CHANNELS = 128     # 4·kBwdMaxQuads
 MAX_CLUSTER = 8          # kBwdMaxCluster
 TARGET_BLOCKS = 1024     # kTargetBlocks
 BWD_TILE = 256           # most pixels per backward block
-SMEM_BUDGET = 64 * 1024
-SMEM_OPT_IN = 232448
-STATIC_SMEM = 5 * MAX_PARTS * 4
 
 
-def backward_smem(k: int, c: int, tile: int) -> int:
-    """Shared memory of one block of the staging backward kernel, in bytes."""
-    return (k * (c | 1) + tile * ((c | 1) + 2 * k + 2)) * 4 + STATIC_SMEM
+def backward_groups(k: int) -> int:
+    """Part groups of the backward kernel, each reading g once."""
+    return 1 if k <= NARROW_PARTS else -(-k // GROUP_PARTS)
+
+
+def backward_chunks(c: int) -> int:
+    """Channel chunks of the backward kernel, walked one after the other."""
+    return -(-c // CHUNK_CHANNELS)
 
 
 def backward_tile(k: int, c: int, hw: int) -> int:
-    """Pixels per tile of the backward kernel.
-
-    Register-tiled (K <= 12, C <= 128): 64 for images of at most 128
-    pixels, 128 up to 512 pixels (two CTAs to an image), else BWD_TILE.
-    Staging: the largest power of two from 32 to BWD_TILE below 2·H·W
-    whose staging fits SMEM_BUDGET, else 32 (ragged tiles measured
-    slower)."""
-    if k <= TILED_PARTS and c <= TILED_CHANNELS:
-        return 64 if hw <= 128 else 128 if hw <= 512 else BWD_TILE
-    tile = BWD_TILE
-    while tile > 32 and (tile >= 2 * hw or backward_smem(k, c, tile) > SMEM_BUDGET):
-        tile //= 2
-    return tile
+    """Pixels per tile of the backward kernel: 64 for images of at most 128
+    pixels, 128 up to 512 pixels (two CTAs to an image), else BWD_TILE;
+    BWD_TILE whatever the image where C > CHUNK_CHANNELS, whose chunks
+    take the cluster's CTAs side by side (measured faster on the H100 at
+    16²×256 than two or four tiles an image). K does not enter it."""
+    if c > CHUNK_CHANNELS:
+        return BWD_TILE
+    return 64 if hw <= 128 else 128 if hw <= 512 else BWD_TILE
 
 
 def backward_partial_rows(k: int, c: int, hw: int, b: int, tile: int) -> int:
     """Rows of partial sums per image in the backward's scratch: none where
-    one cluster takes the image, else one per block."""
+    one cluster takes the image, else one per block of a group."""
     tiles = -(-hw // tile)
-    if k <= TILED_PARTS and c <= TILED_CHANNELS:
-        return 0 if tiles <= MAX_CLUSTER else min(tiles, max(1, TARGET_BLOCKS // b))
-    return tiles
+    return 0 if tiles <= MAX_CLUSTER else min(tiles, max(1, TARGET_BLOCKS // b))
 
 
 def render_assemble_plain(mu, lam, app, h: int, w: int, kernel: str = "gauss"):
@@ -109,9 +106,6 @@ def _check(mu, lam, app, h, w, kernel) -> None:
         raise ValueError("render_assemble inputs lie on different devices")
     if k > MAX_PARTS:
         raise ValueError(f"render_assemble takes at most {MAX_PARTS} parts, got {k}")
-    if backward_smem(k, c, 32) > SMEM_OPT_IN:
-        raise ValueError(f"render_assemble: K = {k}, C = {c} exceeds the backward kernel's "
-                         "shared memory")
     if b > MAX_BATCH:
         raise ValueError(f"render_assemble takes at most {MAX_BATCH} images, got {b}")
 
@@ -141,8 +135,6 @@ def _launch_backward(mu, lam, app, h, w, kernel, g):
                   int(app.dtype == torch.bfloat16), part.data_ptr() if rows else None, d_app.data_ptr(),
                   d_mu.data_ptr(), d_lam.data_ptr(), b, k, c, h, w, int(kernel == "gauss"), tile)
     render_assemble.backward_launches += 1
-    if not (k <= TILED_PARTS and c <= TILED_CHANNELS):
-        render_assemble.backward_staging_launches += 1
     return d_mu, d_lam, d_app
 
 
@@ -213,4 +205,3 @@ def render_assemble(mu: torch.Tensor, lam: torch.Tensor, app: torch.Tensor,
 
 render_assemble.launches = 0
 render_assemble.backward_launches = 0
-render_assemble.backward_staging_launches = 0   # those of them that took the staging pair

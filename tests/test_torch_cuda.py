@@ -176,10 +176,9 @@ def _backward_inputs(cuda, k=10, c=24, b=3, indefinite=False, seed=11):
 def test_render_assemble_backward_kernel_matches_closed_form(cuda, kernel, dtype, res, k, c,
                                                              indefinite):
     """The backward kernel against render_assemble_vjp on the same inputs:
-    the training decoder's three scales (32²×24 needs the shared-memory
-    opt-in only with the static parameters counted), a ragged 13² tile
-    with an odd K and an indefinite Λ where the clamp is active, and
-    C = 1000, whose staging needs the opt-in at its least tile."""
+    the training decoder's three scales, a ragged 13² tile with an odd K
+    and an indefinite Λ where the clamp is active, and C = 1000, which the
+    kernel walks in eight channel chunks."""
     mu, lam, app = _backward_inputs(cuda, k=k, c=c, indefinite=indefinite)
     app = app.to(dtype)
     g = torch.randn((3, res, res, c), generator=torch.Generator().manual_seed(12)).to(cuda)
@@ -205,13 +204,21 @@ def test_render_assemble_backward_kernel_matches_closed_form(cuda, kernel, dtype
     (4, 64, 10, 64), (2, 128, 10, 32),                        # celeba 64², 128²: partial sums
     (3, 32, 7, 30), (5, 64, 5, 13),                           # odd K, C not a multiple of 4
     (2, 24, 12, 128), (2, 20, 1, 4),                          # 32 and 1 lanes to a pixel row
-    (2, 40, 13, 8),                                           # K > 12: the staging kernel
+    (2, 40, 13, 8),                                           # K > 12: a group of 16 parts
+    (64, 16, 10, 256),                                        # the flagship's 16²×256: 2 chunks
+    (4, 16, 16, 256), (4, 32, 16, 128),                       # deepfashion's K = 16 decode
+    (4, 64, 16, 64), (4, 128, 16, 32),
+    (2, 24, 17, 256), (2, 48, 17, 256),                       # two groups, two chunks; partials
+    (2, 40, 32, 48), (2, 32, 10, 129),                        # K = 32; a chunk of one channel
+    (2, 32, 10, 300),                                         # 3 chunks on 2 CTAs: an empty pass
 ])
 def test_render_assemble_backward_kernel_paths(cuda, dtype, b, res, k, c):
-    """Each path of the backward kernels against render_assemble_vjp:
-    the register-tiled kernel as one cluster per image (up to 8 tiles) and
-    as partial sums with a finish launch, every row width, and the staging
-    kernel; repeats give the same bits."""
+    """Each path of the backward kernel against render_assemble_vjp: one
+    cluster per image and part group (up to 8 tiles) and partial sums with
+    a finish launch, every row width, one and two part groups (K = 13, 16,
+    17, 32), and channels in chunks of 128 (C = 129, 256, 300), taken one
+    after the other or by CTAs of a cluster side by side; repeats give the
+    same bits."""
     mu, lam, app = _backward_inputs(cuda, k=k, c=c, b=b, seed=res + c)
     app = app.to(dtype)
     g = torch.randn((b, res, res, c), generator=torch.Generator().manual_seed(res)).to(cuda)

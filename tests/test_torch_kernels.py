@@ -38,14 +38,15 @@ from partseg_tpu_torch.partops.kernels.tps_warp import SMEM_OPT_IN as TPS_SMEM_O
 from partseg_tpu_torch.partops.kernels.tps_warp import SMEM_PER_SM as TPS_SMEM_PER_SM
 from partseg_tpu_torch.partops.kernels.tps_warp import launch_plan
 from partseg_tpu_torch.partops.kernels.render_assemble import (
+    CHUNK_CHANNELS,
+    GROUP_PARTS,
     MAX_CLUSTER,
-    SMEM_BUDGET,
-    SMEM_OPT_IN,
-    TILED_CHANNELS,
-    TILED_PARTS,
+    NARROW_PARTS,
+    backward_chunks,
+    backward_groups,
     backward_partial_rows,
-    backward_smem,
     backward_tile,
+    render_assemble_vjp,
 )
 from _torch_parity import n, t
 
@@ -124,8 +125,9 @@ def test_softmax_moments_vjp_matches_jax(delta, only_mu):
 
 @pytest.mark.parametrize("kernel", ["gauss", "heavy_tail"])
 @pytest.mark.parametrize("app_dtype", [torch.float32, torch.bfloat16])
-def test_render_assemble_vjp_matches_jax(kernel, app_dtype):
-    mu, _, lam, app = _render_inputs(22)
+@pytest.mark.parametrize("k,c", [(5, 7), (16, 256)])   # and deepfashion's K = 16 at 256 channels
+def test_render_assemble_vjp_matches_jax(kernel, app_dtype, k, c):
+    mu, _, lam, app = _render_inputs(22, k=k, c=c)
     if app_dtype == torch.bfloat16:                        # both sides see the rounded values
         app = np.asarray(torch.from_numpy(app).to(torch.bfloat16).float())
     h, w = 8, 12
@@ -206,34 +208,70 @@ def test_render_assemble_rejects_what_the_kernel_does_not_take():
     big = torch.zeros((1, 33, 4))
     with pytest.raises(ValueError):                             # K > 32
         render_assemble(torch.zeros((1, 33, 2)), torch.zeros((1, 33, 2, 2)), big, 8, 8)
-    with pytest.raises(ValueError):                             # K·C beyond shared memory
-        render_assemble(torch.zeros((1, 16, 2)), torch.zeros((1, 16, 2, 2)),
-                        torch.zeros((1, 16, 2048)), 8, 8)
+    # Any C runs: the backward kernel walks the channels in chunks.
+    wide = render_assemble(torch.zeros((1, 16, 2)), torch.zeros((1, 16, 2, 2)),
+                           torch.zeros((1, 16, 2048)), 8, 8)
+    assert wide.shape == (1, 8, 8, 2048)
 
 
-@pytest.mark.parametrize("k,c,hw,b,tile,rows", [
-    (10, 96, 64, 128, 64, 0), (10, 48, 256, 128, 128, 0),       # the speed128 decoder:
-    (10, 24, 1024, 128, 256, 0),                                # one cluster per image
-    (4, 7, 20, 2, 64, 0), (10, 24, 2048, 1, 256, 0),            # a ragged tile; 8 tiles
-    (10, 24, 2304, 1, 256, 9),                                  # 9 tiles: partial sums
-    (10, 64, 4096, 256, 256, 4), (10, 32, 16384, 256, 256, 4),  # celeba 64², 128²
-    (10, 256, 256, 128, 32, 8), (16, 48, 1024, 128, 128, 8),    # C > 128, K > 12: staging
-    (10, 1000, 64, 3, 32, 2),                                   # above 64 KB: 32 pixels
+@pytest.mark.parametrize("k,c,hw,b,tile,rows,groups,chunks", [
+    (10, 96, 64, 128, 64, 0, 1, 1), (10, 48, 256, 128, 128, 0, 1, 1),   # the speed128 decoder:
+    (10, 24, 1024, 128, 256, 0, 1, 1),                                  # one cluster per image
+    (4, 7, 20, 2, 64, 0, 1, 1), (10, 24, 2048, 1, 256, 0, 1, 1),        # a ragged tile; 8 tiles
+    (10, 24, 2304, 1, 256, 9, 1, 1),                                    # 9 tiles: partial sums
+    (10, 64, 4096, 256, 256, 4, 1, 1), (10, 32, 16384, 256, 256, 4, 1, 1),  # celeba 64², 128²
+    (10, 256, 256, 64, 256, 0, 1, 2),                     # the flagship's 16²×256: two chunks
+    (16, 256, 256, 64, 256, 0, 1, 2), (16, 128, 1024, 64, 256, 0, 1, 1),  # deepfashion, K = 16:
+    (16, 64, 4096, 64, 256, 16, 1, 1), (16, 32, 16384, 64, 256, 16, 1, 1),  # 16² to 128²
+    (10, 1000, 64, 3, 256, 0, 1, 8), (10, 129, 1024, 2, 256, 0, 1, 2),  # eight chunks; a ragged one
+    (13, 8, 1600, 2, 256, 0, 1, 1), (17, 256, 2304, 2, 256, 9, 2, 2),   # K > 12; two groups
+    (32, 48, 1024, 128, 256, 0, 2, 1),                                  # K = 32
 ])
-def test_render_assemble_backward_tile_fits_shared_memory(k, c, hw, b, tile, rows):
-    """The backward kernel's pixels per tile and rows of partial sums. The
-    register-tiled kernel (K <= 12, C <= 128): tiles of 256 pixels (64 up
-    to 128 pixels, 128 up to 512), one cluster per image up to 8 tiles (no
-    scratch), else
-    min(tiles, 1024 // B) blocks of partials. The staging kernel: a power
-    of two from 32 to 256 within the 64 KB budget where 32 pixels fit it,
-    else 32 pixels within the 227 KB a block may opt in to."""
+def test_render_assemble_backward_tile_fits_shared_memory(k, c, hw, b, tile, rows, groups,
+                                                          chunks):
+    """The backward kernel's pixels per tile, rows of partial sums, part
+    groups and channel chunks. Its shared memory is fixed (a tile of φ and
+    one chunk of a per group), so every K <= 32 and every C fit: K <= 12 is
+    one group, larger K groups of 16; chunks of 128 channels. Tiles of 256
+    pixels (64 up to 128 pixels, 128 up to 512, where C <= 128), one
+    cluster per image and group up to 8 tiles (no scratch), else
+    min(tiles, 1024 // B) blocks of partials."""
     assert backward_tile(k, c, hw) == tile
     assert backward_partial_rows(k, c, hw, b, tile) == rows
+    assert (backward_groups(k), backward_chunks(c)) == (groups, chunks)
     assert -(-hw // tile) <= MAX_CLUSTER or rows
-    if k > TILED_PARTS or c > TILED_CHANNELS:
-        assert backward_smem(k, c, tile) <= (SMEM_BUDGET if c < 1000 else SMEM_OPT_IN)
+    assert groups * (NARROW_PARTS if k <= NARROW_PARTS else GROUP_PARTS) >= k
+    assert chunks * CHUNK_CHANNELS >= c > (chunks - 1) * CHUNK_CHANNELS
     render_assemble(*(torch.zeros(s) for s in ((1, k, 2), (1, k, 2, 2), (1, k, c))), 4, 5)
+
+
+@pytest.mark.parametrize("k,c,kernel", [(16, 256, "gauss"), (10, 1000, "gauss"),
+                                        (17, 129, "heavy_tail")])
+def test_render_assemble_vjp_sums_over_chunks_and_groups(k, c, kernel):
+    """The algebra the backward kernel relies on: g_d = g_φ·dφ/dd with
+    dφ/dd independent of g, so d_μ and d_Λ are linear in g_φ = Σ_c g·a.
+    The VJP of each part group at each channel chunk (its μ, Λ and a's
+    slice, g's slice), with d_μ and d_Λ added over the chunks in order and
+    d_app put together from the slices, equals the whole VJP within
+    1e-6 of each cotangent's largest entry."""
+    mu, _, lam, app = (t(v) for v in _render_inputs(24 + k, k=k, c=c))
+    h, w = 6, 7
+    g = t(np.random.default_rng(25).standard_normal((2, h, w, c)).astype(np.float32))
+    want = render_assemble_vjp(mu, lam, app, h, w, kernel, g)
+    got = [torch.zeros_like(v) for v in want]
+    size = NARROW_PARTS if k <= NARROW_PARTS else GROUP_PARTS
+    for grp in range(backward_groups(k)):
+        parts = slice(grp * size, min(k, (grp + 1) * size))
+        for chunk in range(backward_chunks(c)):
+            chans = slice(chunk * CHUNK_CHANNELS, min(c, (chunk + 1) * CHUNK_CHANNELS))
+            d_mu, d_lam, d_app = render_assemble_vjp(
+                mu[:, parts].contiguous(), lam[:, parts].contiguous(),
+                app[:, parts, chans].contiguous(), h, w, kernel, g[..., chans].contiguous())
+            got[0][:, parts] += d_mu
+            got[1][:, parts] += d_lam
+            got[2][:, parts, chans] = d_app
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(n(a), n(b), rtol=0, atol=1e-6 * n(b).__abs__().max())
 
 
 @pytest.mark.parametrize("b,h,w,m,kh,tile,plan", [

@@ -39,7 +39,9 @@ Phases (one JSON line each; any failure exits non-zero):
                     weights, the port's random VGG, device-resident images)
                     through make_train_period: exact launches per period
                     (render_assemble's backward at every scale a group of
-                    16 parts), period ms, device ms, peak memory.
+                    16 parts), period ms, device ms, peak memory; the
+                    16-part forward's device ms on each scale's inputs
+                    from the period, beside its bound.
      train_loop   — speed128 at full width and B = 128 through the train
                     loop (train/loop.py): the synthetic dataset, the
                     loader, scan_groups = 8, checkpoints. 32 steps; 16 and
@@ -111,8 +113,10 @@ Phases (one JSON line each; any failure exits non-zero):
                     pool, and the native pool where it builds on the host.
      tools_seconds — the seconds of each phase that drives a tool (trace to
                     quality, timing_wide_decodes, feed) and their sum.
-     tps_wide     — tps_warp with a basis staged in chunks (grid 20, and
-                    grid 15 banded): against the plain sample, and timed.
+     tps_wide     — tps_warp on the wide path, its basis through a ring of
+                    chunks (grid 20, and grid 15 banded): against the plain
+                    sample, and timed beside its bound and its library
+                    pair (tps_flow + F.grid_sample).
  10. profile      — torch.profiler device time by kernel family over one
                     infer, one transfer request and one train period, and
                     the device's idle share (aggregated by tools.trace_step).
@@ -126,13 +130,18 @@ final status line.
 
 With --baseline DIR (DIR holds another checkout of the repo, such as a
 `git archive` of an earlier commit unpacked into a gitignored directory)
-it runs only device, build, kernels_warp and turns: both checkouts' csrc/
-built into two libraries; tps_warp's output held bit for bit to the
-baseline's (and to the plain version as above); and each kernel's C entry
-point of both called on the same inputs, device time per call in the
-order baseline, this, this, baseline (render_assemble's backward also at
-the wide decodes' scales, with a sweep of this checkout's tiles, and bit
-for bit the baseline's at K <= 12 and C <= 128).
+it runs only device, build, kernels_warp, turns, tps_wide,
+timing_wide_decodes and train_k16: both checkouts' csrc/ built into two
+libraries; tps_warp's output held bit for bit to the baseline's at the
+training warp and at every tps_warp case of the card tests (and to the
+plain version as above); each kernel's C entry point of both called on
+the same inputs, device time per call in the order baseline, this, this,
+baseline (render_assemble's forward, bit for bit the baseline's, and
+backward also at the wide decodes' scales, with sweeps of this checkout's
+tiles; the backward bit for bit the baseline's at K <= 12 and C <= 128);
+the wide tps_warp bases, the wide decodes' forward and the K = 16 period
+under both libraries in turns (the wrappers' launch rules in Python are
+this checkout's, so the baseline is the parent commit).
 
 Imports nothing of JAX: it needs only this checkout, PyTorch and nvcc.
 """
@@ -216,6 +225,7 @@ from partseg_tpu_torch.partops.kernels.tps_warp import (
     band_config,
     kernel_order_flow,
     launch_plan,
+    pad_columns,
     tps_flow,
     tps_sample_plain,
 )
@@ -575,11 +585,11 @@ def tps_library_pair(img, weights, basis):
                                  mode="bilinear", padding_mode="border", align_corners=False)
 
 
-def _with_band(kh: int):
-    """Set $PARTSEG_WARP_BAND (0 clears it); returns the old value."""
-    old = os.environ.pop("PARTSEG_WARP_BAND", None)
+def _with_band(kh: int, var: str = "PARTSEG_WARP_BAND"):
+    """Set $PARTSEG_WARP_BAND (or ``var``; 0 clears it); returns the old value."""
+    old = os.environ.pop(var, None)
     if kh:
-        os.environ["PARTSEG_WARP_BAND"] = str(kh)
+        os.environ[var] = str(kh)
     return old
 
 
@@ -594,17 +604,14 @@ def _tps_launch(lib, im, weights, basis, band, tile) -> torch.Tensor:
     return out
 
 
-def _odd_warp_inputs(gen):
-    """Shapes off the main path for the bit-for-bit comparison: a batch
-    that is not a multiple of the image group, 17×13 pixels, M = 12 with
-    C = 4, and an image that starts at an odd element offset."""
-    cases = []
-    for b, h, w, c, grid in ((13, 17, 13, 3, 5), (9, 40, 48, 4, 3)):
-        sampler = TPSSampler(grid_size=grid)
-        img = torch.rand((b + 1, h, w, c), generator=gen, device="cuda")   # sliced [1:] below
-        cases.append((img, sampler.sample(gen, b).weights.contiguous(),
-                      sampler.flow_basis(h, w, "cuda")))
-    return cases
+def card_test_tps_cases():
+    """Every tps_warp case of the card tests (tests/test_torch_cuda.py
+    TPS_SHAPES, loaded by path) as (name, band, tile, inputs maker)."""
+    mod = _load_module(ROOT / "tests" / "test_torch_cuda.py", "card_tests")
+    cuda = torch.device("cuda")
+    for name, (b, h, w, c, grid, band, tile, extreme, nan, odd) in mod.TPS_SHAPES.items():
+        yield name, band, tile, (lambda dtype, a=(b, h, w, c, grid, extreme, nan, odd):
+                                 mod._tps_case(cuda, dtype, *a))
 
 
 def phase_warp_kernels(baseline=None) -> dict:
@@ -617,13 +624,13 @@ def phase_warp_kernels(baseline=None) -> dict:
     once: one bf16 ulp at values ≤ 1 (2⁻⁸) plus 1e-4; f32 bilinear_sample
     1e-6 (the same taps and weights, lerp products maybe fused). tps_warp's
     repeats must give the same bits, and with a ``baseline`` library (an
-    earlier checkout's kernels) so must its output: the same flow chain,
-    index rounding, taps and lerp."""
+    earlier checkout's kernels) so must its output, here and at every
+    tps_warp case of the card tests: the same flow chain, index rounding,
+    taps and lerp."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
     img, weights, basis, coords = warp_inputs(gen)
     report, errs = [], {"tps_warp": 0.0, "bilinear_sample": 0.0}
     old = os.environ.get("PARTSEG_WARP_BAND")
-    odd = _odd_warp_inputs(gen) if baseline is not None else []
     try:
         for kh in (0, 56, 40):
             _with_band(kh)
@@ -652,16 +659,25 @@ def phase_warp_kernels(baseline=None) -> dict:
                 if dtype == torch.float32:
                     errs["tps_warp"] = max(errs["tps_warp"], e)
         _with_band(0)
-        for im, w_, bs in odd:
+        for name, kh, tile_env, make in card_test_tps_cases() if baseline is not None else ():
+            _with_band(kh)
+            tile_prior = _with_band(tile_env, "PARTSEG_WARP_TILE")
             for dtype in (torch.float32, torch.bfloat16):
-                x = im.to(dtype)[1:]
-                got, prior = (_tps_launch(lib, x, w_, bs, 0, 0) for lib in (_build.library(),
-                                                                           baseline))
+                x, w_, bs = make(dtype)
+                band, tile = band_config(dtype, x.shape[1], x.shape[2])
+                got = tps_warp(x, w_, bs)   # this tree's wrapper: a wide basis padded as it pads it
+                prior = _tps_launch(baseline, x, w_, bs, band, tile)
                 torch.cuda.synchronize()
-                report.append({"kernel": "tps_warp", "shape": list(x.shape), "dtype": str(dtype),
-                               "m": w_.shape[1], "baseline_max_abs": max_err(got, prior)})
+                report.append({"kernel": "tps_warp", "case": name, "dtype": str(dtype),
+                               "m": w_.shape[1], "band": band,
+                               "chunk": launch_plan(x.shape[0], x.shape[1], x.shape[2],
+                                                    w_.shape[1], band, tile).chunk,
+                               "baseline_max_abs": max_err(got, prior)})
                 check(torch.equal(got, prior),
-                      f"tps_warp {list(x.shape)} {dtype}: differs from the baseline's kernel")
+                      f"tps_warp case {name} {dtype}: differs from the baseline's kernel")
+            _with_band(0, "PARTSEG_WARP_TILE")
+            if tile_prior is not None:
+                os.environ["PARTSEG_WARP_TILE"] = tile_prior
     finally:
         _with_band(0)
         if old is not None:
@@ -1100,7 +1116,7 @@ K16_LAUNCHES = {"tps_warp": 1, "softmax_moments": 3, "render_assemble": 8, "bili
                 "render_assemble_backward": 8}
 
 
-def phase_train_k16(smi: str) -> dict:
+def phase_train_k16(smi: str, old=None) -> dict:
     """The deepfashion preset (K = 16, 128 px, features 128, depth 4, the
     4-scale decoder at widths 256/128/64/32, VGG to relu4_2, swap 1.0,
     bf16) at full width, B = 64, through make_train_period: one warm
@@ -1109,7 +1125,12 @@ def phase_train_k16(smi: str) -> dict:
     on x_s, x_a and the swap's reconstruction, two decodes of 4 scales and
     their backwards); then period ms by CUDA events, its device ms
     (profiler) and peak memory. Seeded weights, the port's random VGG,
-    device-resident random images (DeepFashion is not on the machine)."""
+    device-resident random images (DeepFashion is not on the machine).
+    Run under ``recording``: the render_assemble forward on each decoder
+    scale's inputs that the period gave it, device ms per call beside its
+    bound; with ``old`` (another checkout's library), that forward and the
+    whole period under it in turns, and whether the forward's outputs hold
+    the baseline's bits."""
     cfg = train_config("deepfashion")
     state, period, batches, perceptual = build_trainer(cfg, K16_BATCH, seed=SEED)
     state, _ = period(state, batches, cfg.seed)
@@ -1129,6 +1150,29 @@ def phase_train_k16(smi: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     period_ms = event_ms(lambda: period(state, batches, cfg.seed), runs=5, warmup=1)
     period_device_ms = device_ms(lambda: period(state, batches, cfg.seed), calls=2, warmup=0)
+    forwards = []
+    for (kernel, *_), (path, _, inputs) in PATH_INPUTS.items():
+        if kernel == "render_assemble" and path == "train_k16":
+            mu_, lam_, app, h, w, kind = inputs
+
+            def call(mu_=mu_, lam_=lam_, app=app, h=h, w=w, kind=kind):
+                return render_assemble(mu_, lam_, app, h, w, kind)
+            row = {"app": list(app.shape), "res": h, "device_ms": device_ms(call),
+                   "bound_ms": bound_ms(*render_assemble_bound(*app.shape, h))[0],
+                   **forward_against(old, call)}
+            check(row.get("bit_for_bit") is not False,
+                  f"train_k16: the forward at {h}² differs from the baseline's")
+            forwards.append(row)
+    check(len(forwards) == cfg.model.decoder_scales,
+          f"train_k16: {len(forwards)} recorded decoder scales")
+    period_turns = {}
+    if old is not None:
+        def old_period():
+            with using_library(old):
+                period(state, batches, cfg.seed)
+        period_turns = dict(zip(("baseline_period_device_ms", "turns_period_device_ms"),
+                                turns_ms(old_period, lambda: period(state, batches, cfg.seed),
+                                         calls=2, warmup=1)))
     m = cfg.model
     emit("train_k16", config="deepfashion", batch=K16_BATCH, dtype=str(m.dtype),
          n_parts=m.n_parts, vgg_mode=perceptual.vgg_mode, lr=lr, metrics=values,
@@ -1136,7 +1180,8 @@ def phase_train_k16(smi: str) -> dict:
          backward_plans=[backward_plan(m.n_parts, f, (m.decoder_out_size or m.img_size)
                                        // 2 ** (m.decoder_scales - 1 - i), K16_BATCH)
                          for i, f in enumerate(m.decoder_features[:m.decoder_scales])],
-         period_ms=period_ms, period_device_ms=period_device_ms,
+         period_ms=period_ms, period_device_ms=period_device_ms, **period_turns,
+         forward_by_scale=forwards,
          train_img_per_s=K16_BATCH * cfg.augment.warp_every / period_ms * 1e3,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, nvidia_smi=smi)
     return launches
@@ -1160,10 +1205,28 @@ def _decode_rows(scales: list[dict]) -> dict:
     return out
 
 
-def phase_wide_decodes(smi: str) -> None:
+def forward_against(old, call) -> dict:
+    """With ``old`` (another checkout's library): ``call`` (a wrapper call
+    returning a tensor) under it and under this checkout's in turns, device
+    ms per call, and whether the two outputs hold the same bits."""
+    if old is None:
+        return {}
+    with using_library(old):
+        was = call()
+
+    def old_call():
+        with using_library(old):
+            return call()
+    old_ms, new_ms = turns_ms(old_call, call)
+    return {"baseline_device_ms": old_ms, "turns_device_ms": new_ms,
+            "bit_for_bit": torch.equal(was, call())}
+
+
+def phase_wide_decodes(smi: str, old=None) -> None:
     """render_assemble at ``wide_decode_cases``' scales (B = 64): the
     forward (the wrapper's event ms, its device ms, the plain version's
-    event ms, the bound) and the backward kernel (device ms per call from
+    event ms, the bound; with ``old``, another checkout's forward in turns
+    and bit for bit) and the backward kernel (device ms per call from
     the profiler, the wrapper's event ms, the plain closed form's device
     ms, and the bound: bytes, the cotangent g read once), beside the
     backward's launch plan."""
@@ -1175,6 +1238,9 @@ def phase_wide_decodes(smi: str) -> None:
         fwd = _timed(lambda: render_assemble(mu_, lam_, app, res, res, kind),
                      lambda: render_assemble_plain(mu_, lam_, app, res, res, kind),
                      render_assemble_bound(b, k_, f, res))
+        fwd.update(forward_against(old, lambda: render_assemble(mu_, lam_, app, res, res, kind)))
+        check(fwd.get("bit_for_bit") is not False,
+              f"timing_wide_decodes: the forward at {label} {res}² differs from the baseline's")
         bound, by = bound_ms(*render_backward_bound(b, k_, f, res))
         dev_ms = device_ms(lambda: render_assemble_backward(mu_, lam_, app, res, res, kind, g))
         rows.append({"model": label, **backward_plan(k_, f, res, b), "forward": fwd,
@@ -1380,17 +1446,42 @@ def _backward_rule(baseline: Path):
     return mod.backward_tile, getattr(mod, "backward_partial_rows", None)
 
 
-def phase_tps_wide(smi: str) -> None:
+@contextlib.contextmanager
+def using_library(lib):
+    """The wrappers launch ``lib``'s entry points (another checkout's
+    kernels, built from its csrc/) while this runs; their launch rules in
+    Python stay this checkout's."""
+    own = _build.library
+    _build.library = lambda csrc=_build.CSRC_DIR: lib
+    try:
+        yield
+    finally:
+        _build.library = own
+
+
+def turns_ms(old_call, new_call, **kw) -> tuple[list, list]:
+    """Device ms per call of two callables in the order old, new, new, old
+    (``kw`` to device_ms): ([old, old], [new, new])."""
+    ms = [device_ms(f, **kw) for f in (old_call, new_call, new_call, old_call)]
+    return [ms[0], ms[3]], [ms[1], ms[2]]
+
+
+def phase_tps_wide(smi: str, old=None) -> None:
     """tps_warp where the basis is staged in chunks of columns: grid 20
     unbanded (M = 403) and grid 15 at band kh = 56 (M = 228), at the
-    training warp shape (32 images of 128²×3 bf16). Device time per call
+    training warp shape (32 images of 128²×3 bf16), through
+    TPSSampler.warp, the main path (its basis rows padded to 16 bytes, as
+    the kernel's wide path reads them; timed on those inputs). Device time per call
     beside the bound, the wrapper's and the plain version's event times,
     and the library pair's (tps_flow + F.grid_sample, unbanded). The
     output is held within one bf16 ulp below 1 (2⁻⁸, + 1e-4) of the plain
     sample at the flow summed in the kernel's
     order (kernel_order_flow), as the card tests hold it: the plain
     einsum's order differs from the kernel's by up to 0.006 px at grid 20,
-    so its error is printed beside the check, unchecked."""
+    so its error is printed beside the check, unchecked. With ``old``
+    (another checkout's library), its entry point on the same inputs in
+    turns with this one's (old, new, new, old), and whether the two outputs
+    hold the same bits (they must)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
     prior = os.environ.get("PARTSEG_WARP_BAND")
     for grid, kh in ((20, 0), (15, 56)):
@@ -1403,7 +1494,8 @@ def phase_tps_wide(smi: str) -> None:
         m = weights.shape[1]
         plan = launch_plan(32, 128, 128, m, band, tile)
         check(band == kh and plan.chunk < m, f"tps_warp M = {m}: band {band}, plan {plan}")
-        got = tps_warp(img, weights, basis)
+        got = sampler.warp(TPSParams(weights), img)    # the main path: 16-byte basis rows
+        kw, kb = pad_columns(weights, basis)            # as TPSSampler.warp passes them
         flow, _ = kernel_order_flow(weights, basis)
         err = max_err(got, tps_sample_plain(img.float(), flow, band, tile).to(img.dtype))
         check(bool(torch.isfinite(got).all()), f"tps_warp M = {m}: output not finite")
@@ -1412,10 +1504,25 @@ def phase_tps_wide(smi: str) -> None:
         einsum_err = max_err(got, tps_warp_plain(img.float(), weights, basis, band, tile))
         bound, by = bound_ms(*tps_warp_bound(32, 128, 128, 3, m, 2))
         pair = tps_library_pair(img, weights, basis)
+        baseline = {}
+        if old is not None:   # each tree's main-path inputs: the basis as it was, and padded
+            was = _tps_launch(old, img, weights, basis, band, tile)
+            outs = {id(lib): torch.empty_like(img) for lib in (old, _build.library())}
+
+            def call(lib, w_, b_):
+                return lambda: _build.launch(
+                    "partseg_tps_warp", img.device, img.data_ptr(), 1, w_.data_ptr(),
+                    b_.data_ptr(), outs[id(lib)].data_ptr(), 32, 128, 128, 3, w_.shape[1], tile,
+                    band, lib=lib)
+            old_ms, new_ms = turns_ms(call(old, weights, basis), call(_build.library(), kw, kb))
+            same = torch.equal(was, got)
+            check(same, f"tps_warp M = {m}: differs from the baseline's kernel")
+            baseline = {"baseline_device_ms": old_ms, "turns_device_ms": new_ms,
+                        "bit_for_bit": same}
         emit("tps_wide", grid=grid, m=m, band=band, chunk=plan.chunk, group=plan.group,
-             max_abs_vs_kernel_order=err, max_abs_vs_plain_einsum=einsum_err,
-             device_ms=[device_ms(lambda: tps_warp(img, weights, basis)) for _ in range(2)],
-             ms=event_ms(lambda: tps_warp(img, weights, basis), inner=KERNEL_INNER),
+             max_abs_vs_kernel_order=err, max_abs_vs_plain_einsum=einsum_err, **baseline,
+             device_ms=[device_ms(lambda: tps_warp(img, kw, kb)) for _ in range(2)],
+             ms=event_ms(lambda: tps_warp(img, kw, kb), inner=KERNEL_INNER),
              plain_ms=event_ms(lambda: tps_warp_plain(img, weights, basis, band, tile),
                                inner=KERNEL_INNER),
              library_pair=TPS_LIBRARY_PAIR + ("" if not band else "; unbanded"),
@@ -1996,6 +2103,30 @@ def phase_spatial(smi: str) -> dict:
     return ranks[0]["launches"]
 
 
+SWEEP_TILES = (64, 128, 256)
+SWEEP_BLOCKS = (1, 2, 4, 8, 16, 32, 64)
+
+
+def forward_tile_sweep(case, mu, lam, app, res, gauss, lib, smi) -> None:
+    """This checkout's 16-part forward at each tile (pixels) and blocks per
+    image (each block walks ceil(tiles / blocks) tiles), device ms per call:
+    the sweep that chose forward_plan16 in csrc/render_assemble.cu."""
+    b, k, c = app.shape
+    dev = app.device
+    out = torch.empty((b, res, res, c), device=dev)
+    rows = {}
+    for tile in SWEEP_TILES:
+        tiles = -(-res * res // tile)
+        for blocks in sorted({min(x, tiles) for x in SWEEP_BLOCKS}):
+            rows[f"{tile}x{blocks}"] = device_ms(lambda tile=tile, blocks=blocks: _build.launch(
+                "partseg_render_assemble_tiled", dev, mu.data_ptr(), lam.data_ptr(),
+                app.data_ptr(), int(app.dtype == torch.bfloat16), out.data_ptr(), b, k, c, res,
+                res, gauss, tile, blocks, lib=lib))
+    best = min(rows, key=rows.get)
+    emit("tile_sweep", case=case, batch=b, k=k, device_ms_by_tile_x_blocks=rows, fastest=best,
+         bound_ms=bound_ms(*render_assemble_bound(b, k, c, res))[0], nvidia_smi=smi)
+
+
 def phase_turns(cfg, baseline: Path, smi: str) -> None:
     """The baseline checkout's kernels against this checkout's: each C
     entry point of both libraries called on the same inputs (outputs and
@@ -2008,8 +2139,12 @@ def phase_turns(cfg, baseline: Path, smi: str) -> None:
     of the celeba serving decoder (B = 256), and at ``wide_decode_cases``
     (K > 12 or C > 128, B = 64), where this checkout's kernel is also
     timed at each tile (a ``tile_sweep`` line). At K <= 12 and C <= 128 its
-    outputs must equal the baseline's bit for bit. F.grid_sample is timed
-    beside bilinear_sample."""
+    outputs must equal the baseline's bit for bit. The forward is timed per
+    decode (serving, training) and at each ``wide_decode_cases`` scale and
+    K = 16 decode, its outputs the baseline's bit for bit everywhere, with a
+    tile sweep of the 16-part tile at each K = 16 scale; tps_warp at the
+    training warp, unbanded and banded, its outputs the baseline's bit for
+    bit. F.grid_sample is timed beside bilinear_sample."""
     old = _build.library(baseline / "partseg_tpu_torch" / "csrc")
     new = _build.library()
     dev = torch.device("cuda")
@@ -2039,19 +2174,35 @@ def phase_turns(cfg, baseline: Path, smi: str) -> None:
             "partseg_softmax_moments_f32", dev, logits.data_ptr(), parts.data_ptr(),
             raw.data_ptr(), b, h, w, k, logits.stride(2), lib=lib)
 
-    def render_call(mu, lam, scales, gauss):
-        outs = [torch.empty((mu.shape[0], res, res, app.shape[-1]), device=dev)
-                for res, app in scales]
-
+    def render_call(mu, lam, scales, gauss, outs=None):
+        """Each library's forward entry point over ``scales`` [(res, app)],
+        outputs allocated once per library; ``outs`` gets them by id."""
         def make(lib):
+            res_outs = [torch.empty((mu.shape[0], res, res, app.shape[-1]), device=dev)
+                        for res, app in scales]
+            if outs is not None:
+                outs[id(lib)] = res_outs
+
             def run():
-                for (res, app), out in zip(scales, outs):
+                for (res, app), out in zip(scales, res_outs):
                     b, k, c = app.shape
                     launch("partseg_render_assemble", dev, mu.data_ptr(), lam.data_ptr(),
                            app.data_ptr(), int(app.dtype == torch.bfloat16), out.data_ptr(),
                            b, k, c, res, res, gauss, lib=lib)
             return run
         return make
+
+    def forward_turns(case, mu_, lam_, scales, gauss):
+        """Turns of the forward over ``scales``; its outputs must equal the
+        baseline's bit for bit (the parts are summed in order from 0 in
+        every register tile)."""
+        outs = {}
+        bound = tuple(sum(v) for v in zip(*(render_assemble_bound(app.shape[0], app.shape[1],
+                                                                  app.shape[2], res)
+                                            for res, app in scales)))
+        same = turns(case, render_call(mu_, lam_, scales, gauss, outs), bound, outs,
+                     k=scales[0][1].shape[1], batch=scales[0][1].shape[0])
+        check(same, f"{case}: differs from the baseline's kernel")
 
     k, size = cfg.n_parts, cfg.map_size
     turns("softmax_moments serving", softmax_call(serving_logits(gen, k, size)),
@@ -2064,17 +2215,10 @@ def phase_turns(cfg, baseline: Path, smi: str) -> None:
     _, mu, sigma = softmax_moments_plain(serving_logits(gen, k, size))
     cases = render_cases(cfg, mu.contiguous(), sigma, gen)
     gauss = int(cfg.render_kernel == "gauss")
-    def forward_bound(scales, b):
-        return tuple(sum(v) for v in zip(*(render_assemble_bound(b, k, app.shape[-1], res)
-                                           for res, app in scales)))
-
     sscales = [(res, app) for *_, app, res in cases]
-    turns("render_assemble serving decode",
-          render_call(cases[0][1], cases[0][2], sscales, gauss), forward_bound(sscales, BATCH))
+    forward_turns("render_assemble serving decode", cases[0][1], cases[0][2], sscales, gauss)
     tkind = train_config("speed128").model.render_kernel
-    turns("render_assemble training decode",
-          render_call(tmu, tlam, tscales, int(tkind == "gauss")),
-          forward_bound(tscales, TRAIN_BATCH))
+    forward_turns("render_assemble training decode", tmu, tlam, tscales, int(tkind == "gauss"))
 
     rules = {id(old): _backward_rule(baseline), id(new): _backward_rule(ROOT)}
 
@@ -2139,7 +2283,19 @@ def phase_turns(cfg, baseline: Path, smi: str) -> None:
              for res, app in sscales]
     backward_turns("serving", cases[0][1], cases[0][2], cfg.render_kernel, sscales, scots)
     del scots
-    for label, _, mu_, lam_, app, res, g, kind in wide_decode_cases(gen):
+    wide = wide_decode_cases(gen)
+    decodes = {}
+    for label, k_, mu_, lam_, app, res, g, kind in wide:
+        decodes.setdefault(label, (mu_, lam_, int(kind == "gauss"), []))[3].append((res, app))
+        forward_turns(f"render_assemble forward {label} {res}x{app.shape[-1]}", mu_, lam_,
+                      [(res, app)], int(kind == "gauss"))
+        if k_ > NARROW_PARTS:
+            forward_tile_sweep(f"render_assemble forward {label} {res}x{app.shape[-1]}", mu_,
+                               lam_, app, res, int(kind == "gauss"), new, smi)
+    for label, (mu_, lam_, gk, scales) in decodes.items():
+        if len(scales) > 1:
+            forward_turns(f"render_assemble forward {label} decode", mu_, lam_, scales, gk)
+    for label, _, mu_, lam_, app, res, g, kind in wide:
         backward_turns(label, mu_, lam_, kind, [(res, app)], [g])
         runs = {t: backward_call(mu_, lam_, kind, [(res, app)], [g], tile=t)(new)
                 for t in (64, 128, 256)}
@@ -2152,17 +2308,19 @@ def phase_turns(cfg, baseline: Path, smi: str) -> None:
     img, weights, basis, coords = warp_inputs(gen, torch.bfloat16)
     nw, s = img.shape[0], img.shape[1]
     m = weights.shape[1]
-    warped = torch.empty_like(img)
     tps = tps_warp_bound(nw, s, s, 3, m, 2)
     prior = os.environ.get("PARTSEG_WARP_BAND")
     for kh in (0, 56, 40):
         _with_band(kh)
         band, tile = band_config(img.dtype, s, s)
         check(band == kh, f"tps_warp band {band}, expected {kh}")
-        turns(f"tps_warp training{f' band kh={kh}' if kh else ''}",
-              lambda lib, band=band, tile=tile: lambda: launch(
-                  "partseg_tps_warp", dev, img.data_ptr(), 1, weights.data_ptr(),
-                  basis.data_ptr(), warped.data_ptr(), nw, s, s, 3, m, tile, band, lib=lib), tps)
+        outs = {id(lib): [torch.empty_like(img)] for lib in (old, new)}
+        same = turns(f"tps_warp training{f' band kh={kh}' if kh else ''}",
+                     lambda lib, band=band, tile=tile: lambda: launch(
+                         "partseg_tps_warp", dev, img.data_ptr(), 1, weights.data_ptr(),
+                         basis.data_ptr(), outs[id(lib)][0].data_ptr(), nw, s, s, 3, m, tile,
+                         band, lib=lib), tps, outs)
+        check(same, f"tps_warp training kh={kh}: differs from the baseline's kernel")
     _with_band(0)
     if prior is not None:
         os.environ["PARTSEG_WARP_BAND"] = prior
@@ -2941,9 +3099,13 @@ def main() -> int:
     phase_build()
     cfg = model_config("celeba", use_pallas=True)
     if args.baseline is not None:
-        phase_warp_kernels(_build.library(args.baseline / "partseg_tpu_torch" / "csrc"))
+        old = _build.library(args.baseline / "partseg_tpu_torch" / "csrc")
+        phase_warp_kernels(old)
         phase_turns(cfg, args.baseline, smi)
-        phase_tps_wide(smi)
+        phase_tps_wide(smi, old)
+        phase_wide_decodes(smi, old)
+        with recording("train_k16"):
+            phase_train_k16(smi, old)
         print(smi, flush=True)
         return 0
     errs = phase_kernels(cfg)

@@ -183,7 +183,10 @@ class TPSSampler:
 
         Border padding goes to the ``tps_warp`` kernel (flow and sample
         fused; its plain version on a CPU tensor); other modes build the
-        explicit flow and go through ``warp_image``. The JAX package picks
+        explicit flow and go through ``warp_image``. On the card a basis
+        whose rows are not a multiple of 4 floats goes to the kernel padded
+        with zero columns, and the weights with it (the same flow), kept
+        once per device. The JAX package picks
         between these by ``AugmentConfig.warp_impl`` and the backend; the
         port always takes its kernels on the card, so that field is kept
         for parity only."""
@@ -192,6 +195,11 @@ class TPSSampler:
 
         _, h, w, _ = image.shape
         if padding_mode == "border":
-            return tps_warp(image, params.weights.contiguous(),
-                            self.flow_basis(h, w, image.device))
+            weights, basis = params.weights.contiguous(), self.flow_basis(h, w, image.device)
+            pad = -basis.shape[1] % 4
+            if image.is_cuda and pad:   # 16-byte basis rows for the kernel's wide path
+                weights = torch.nn.functional.pad(weights, (0, 0, 0, pad))
+                basis = self._const(f"basis{h}x{w}_padded", image.device, lambda: np.pad(
+                    self._flow_basis_np(h, w), ((0, 0), (0, pad))))
+            return tps_warp(image, weights, basis)
         return warp_image(image, self.flow_field(params, h, w), padding_mode=padding_mode)

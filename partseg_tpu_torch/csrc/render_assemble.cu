@@ -11,17 +11,29 @@
 //
 // Forward. What bounds it on the H100: device memory. The f32 output is the
 // only large array (B·H·W·C·4 bytes); the work is ~2 flops per output
-// element per part (K = 10: ~5 flop/byte, far below the f32 ridge), so no
-// tensor cores. A block walks a share of one image's tiles of 256 pixels
-// (64 for images of at most 128 pixels): per tile it computes φ[tile, K]
-// once into shared memory (rows padded to a multiple of 4 parts with
-// zeros); each thread owns a quad of channels, holds a[0..K−1][c..c+3] in
-// registers for all its tiles, and walks pixels reading φ rows as broadcast
-// float4 loads — one shared load feeds 16 FMAs — and storing float4
-// outputs, coalesced across the quads of a row. Thread roles come from a
-// 2-D split of threadIdx.x made once, so no integer division runs per
-// output. The TPU kernel's 128-lane padding of K and C (and its Λ = I
-// padding parts) existed only for the TPU's tiles.
+// element per part (K = 10: ~5 flop/byte, K = 16: ~8, far below the f32
+// ridge), so no tensor cores. A block walks a share of one image's tiles of
+// pixels: per tile it computes φ[tile, K] once into shared memory (rows
+// padded with zero parts to the register tile: 12 parts for K <= 12, 16 for
+// K <= 16, 32 above); each thread owns a quad of channels, holds
+// a[0..K−1][c..c+3] in registers for all its tiles, and walks pixels
+// reading φ rows as broadcast float4 loads — one shared load feeds 16 FMAs —
+// and storing float4 outputs, coalesced across the quads of a row. Thread
+// roles come from a 2-D split of threadIdx.x made once, so no integer
+// division runs per output. The TPU kernel's 128-lane padding of K and C
+// (and its Λ = I padding parts) existed only for the TPU's tiles.
+// K <= 12 takes tiles of 256 pixels (64 for images of at most 128 pixels)
+// and about kTargetBlocks blocks in all. 13 <= K <= 16 (deepfashion,
+// human36m, penn_action) has a 16-part tile of its own: a 32-part tile
+// there held 128 registers of a per thread and did half its FMAs, φ
+// fills and φ shared memory on zero parts. Its tile and blocks per image
+// come from forward_plan16, chosen on the H100 at the K = 16 decoder's
+// four scales (B = 64), where the output is small and few blocks would
+// leave SMs idle. Parts are summed in order from 0 in every tile: the zero
+// parts only ever added fmaf(0, a, acc) = acc, so the 16-part tile gives
+// the 32-part tile's bits. 17 <= K <= 32 (no preset) keeps the 32-part
+// tile: splitting its parts into two groups of 16 would need a second
+// register set of a or a second pass over the output.
 //
 // Backward, the closed form of `_bwd` exactly: φ and dφ/dd recomputed in f32
 // from μ and Λ, g_φ[u,k] = Σ_c g[u,c]·a[k,c], g_d = g_φ·dφ/dd, and per part
@@ -65,6 +77,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTargetBlocks = 1024;   // forward: blocks in all, about 8 per SM
+constexpr int kTargetBlocks16 = 256;  // the 16-part forward: about 2 per SM
 constexpr int kMaxParts = 32;   // the wrapper raises above this
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -144,7 +157,8 @@ __device__ __forceinline__ void load_quad(const T* __restrict__ ab, int k, int c
   }
 }
 
-// kKQ: parts padded to 4·kKQ (the register tile of a). One block per
+// kKQ: parts padded to 4·kKQ (the register tile of a): K <= 12 takes
+// kKQ 3, 13 <= K <= 16 kKQ 4, 17 <= K <= 32 kKQ 8. One block per
 // (gridDim.x-th share of image b's kTile-pixel tiles): it walks tiles
 // blockIdx.x, + gridDim.x, ..., so a thread loads its a quad once.
 template <typename T, bool kGauss, int kKQ, int kTile>
@@ -176,16 +190,39 @@ render_assemble_kernel(const float* __restrict__ mu, const float* __restrict__ l
   float* phi_f = reinterpret_cast<float*>(phi_s);
   for (int p0 = blockIdx.x * kTile; p0 < hw; p0 += gridDim.x * kTile) {
     const int npix = min(kTile, hw - p0);
-    // Thread (pixel tid % kTile) computes parts tid / kTile, + kThreads / kTile, ...
-    for (int i = threadIdx.x; i < kTile * kP; i += kThreads) {
-      const int t = i % kTile;
-      const int part = i / kTile;
-      if (t < npix) {
-        const float2 u = pixel_coord(p0 + t, h, w);
-        float dphi;
-        phi_f[t * kP + part] =
-            part < k ? part_phi<kGauss>(par, part, u.x - par[0][part], u.y - par[1][part], &dphi)
-                     : 0.0f;
+    if constexpr (kKQ == 4) {
+      // A thread per (pixel, quad of parts): the pixel's coordinates once a
+      // quad, one float4 store. At 16 parts and few channels (the 128²×32
+      // scale) φ is a large share of the work.
+      for (int i = threadIdx.x; i < kTile * kKQ; i += kThreads) {
+        const int t = i / kKQ;
+        const int kq = i - t * kKQ;
+        if (t < npix) {
+          const float2 u = pixel_coord(p0 + t, h, w);
+          float f[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int part = 4 * kq + j;
+            float dphi;
+            f[j] = part < k ? part_phi<kGauss>(par, part, u.x - par[0][part],
+                                               u.y - par[1][part], &dphi)
+                            : 0.0f;
+          }
+          phi_s[i] = make_float4(f[0], f[1], f[2], f[3]);
+        }
+      }
+    } else {
+      // Thread (pixel tid % kTile) computes parts tid / kTile, + kThreads / kTile, ...
+      for (int i = threadIdx.x; i < kTile * kP; i += kThreads) {
+        const int t = i % kTile;
+        const int part = i / kTile;
+        if (t < npix) {
+          const float2 u = pixel_coord(p0 + t, h, w);
+          float dphi;
+          phi_f[t * kP + part] =
+              part < k ? part_phi<kGauss>(par, part, u.x - par[0][part], u.y - par[1][part], &dphi)
+                       : 0.0f;
+        }
       }
     }
     __syncthreads();
@@ -236,25 +273,49 @@ void launch_forward_cfg(const float* mu, const float* lam, const void* app, floa
       mu, lam, static_cast<const T*>(app), out, k, c, h, w);
 }
 
-// Tiles of 256 pixels, and images of at most 128 pixels in one 64-pixel
-// tile; about kTargetBlocks blocks in all. Chosen on the H100 at the
-// serving and training decoders' shapes: fewer, longer-lived blocks that
-// each load their a quad once beat one block per tile.
+// Any tile the kernel is built for; false where (kKQ, tile) has no instance.
 template <typename T, bool kGauss, int kKQ>
-void launch_forward_k(const float* mu, const float* lam, const void* app, float* out, int b,
-                      int k, int c, int h, int w, cudaStream_t stream) {
-  const int blocks_x = max(1, kTargetBlocks / b);
-  if (h * w <= 128)
+bool launch_forward_tile(const float* mu, const float* lam, const void* app, float* out, int b,
+                         int k, int c, int h, int w, int tile, int blocks_x,
+                         cudaStream_t stream) {
+  if (tile == 64)
     launch_forward_cfg<T, kGauss, kKQ, 64>(mu, lam, app, out, b, k, c, h, w, blocks_x, stream);
-  else
+  else if (tile == 256)
     launch_forward_cfg<T, kGauss, kKQ, 256>(mu, lam, app, out, b, k, c, h, w, blocks_x, stream);
+  else if (kKQ == 4 && tile == 128)
+    launch_forward_cfg<T, kGauss, kKQ, 128>(mu, lam, app, out, b, k, c, h, w, blocks_x, stream);
+  else
+    return false;
+  return true;
+}
+
+// The 16-part tile's launch, as (tile, blocks per image). Chosen on the
+// H100 at deepfashion's K = 16 decode (B = 64: 16²×256, 32²×128, 64²×64,
+// 128²×32) by a sweep of tiles 64/128/256 and blocks per image.
+void forward_plan16(int b, int hw, int* tile, int* blocks_x) {
+  *tile = hw <= 256 ? 64 : 256;
+  *blocks_x = max(1, kTargetBlocks16 / b);
 }
 
 template <typename T, bool kGauss>
 void launch_forward(const float* mu, const float* lam, const void* app, float* out, int b,
                     int k, int c, int h, int w, cudaStream_t stream) {
-  if (k <= 12) launch_forward_k<T, kGauss, 3>(mu, lam, app, out, b, k, c, h, w, stream);
-  else launch_forward_k<T, kGauss, 8>(mu, lam, app, out, b, k, c, h, w, stream);
+  // K <= 12 and 17 <= K <= 32: tiles of 256 pixels, and images of at most
+  // 128 pixels in one 64-pixel tile; about kTargetBlocks blocks in all.
+  // Chosen on the H100 at the serving and training decoders' shapes (K =
+  // 10): fewer, longer-lived blocks that each load their a quad once beat
+  // one block per tile.
+  const int tile = h * w <= 128 ? 64 : 256;
+  const int blocks_x = max(1, kTargetBlocks / b);
+  if (k <= 12) {
+    launch_forward_tile<T, kGauss, 3>(mu, lam, app, out, b, k, c, h, w, tile, blocks_x, stream);
+  } else if (k <= 16) {
+    int t16, b16;
+    forward_plan16(b, h * w, &t16, &b16);
+    launch_forward_tile<T, kGauss, 4>(mu, lam, app, out, b, k, c, h, w, t16, b16, stream);
+  } else {
+    launch_forward_tile<T, kGauss, 8>(mu, lam, app, out, b, k, c, h, w, tile, blocks_x, stream);
+  }
 }
 
 // ----------------------------------------------------------------- backward
@@ -681,6 +742,34 @@ extern "C" int partseg_render_assemble(const float* mu, const float* lam, const 
     else launch_forward<float, false>(mu, lam, app, out, b, k, c, h, w, s);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+bool forward_tile_any(const float* mu, const float* lam, const void* app, float* out, int b,
+                      int k, int c, int h, int w, int gauss, int tile, int blocks_x,
+                      cudaStream_t s) {
+  const int kq = k <= 12 ? 3 : k <= 16 ? 4 : 8;
+#define PARTSEG_FWD(KQ)                                                                     \
+  (gauss ? launch_forward_tile<T, true, KQ>(mu, lam, app, out, b, k, c, h, w, tile, blocks_x, s) \
+         : launch_forward_tile<T, false, KQ>(mu, lam, app, out, b, k, c, h, w, tile, blocks_x, s))
+  return kq == 3 ? PARTSEG_FWD(3) : kq == 4 ? PARTSEG_FWD(4) : PARTSEG_FWD(8);
+#undef PARTSEG_FWD
+}
+
+// The forward at a given tile (64 or 256; 128 too for 13 <= K <= 16) and
+// blocks per image, for the tile sweep that chose forward_plan16; the same
+// arguments as partseg_render_assemble otherwise. cudaErrorInvalidValue
+// where the tile has no instance.
+extern "C" int partseg_render_assemble_tiled(const float* mu, const float* lam, const void* app,
+                                             int app_is_bf16, float* out, int b, int k, int c,
+                                             int h, int w, int gauss, int tile, int blocks_x,
+                                             void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool ok = app_is_bf16 ? forward_tile_any<__nv_bfloat16>(mu, lam, app, out, b, k, c, h, w,
+                                                                gauss, tile, blocks_x, s)
+                              : forward_tile_any<float>(mu, lam, app, out, b, k, c, h, w, gauss,
+                                                        tile, blocks_x, s);
+  return static_cast<int>(ok ? cudaGetLastError() : cudaErrorInvalidValue);
 }
 
 // The backward. g: [B, H, W, C] f32; part: [B, rows, K, C + 5] f32 scratch

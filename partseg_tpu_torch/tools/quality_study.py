@@ -36,9 +36,9 @@ length, so --resume restores at its granularity; the JAX tool's
 transport, has no counterpart), then
 validate_synthetic --eval_only and validate_segmentation evaluate the
 checkpoint in two children of their own, side by side. Each row keeps
-its training and evaluation seconds (``wall_s``), and result.json the
-rates' and the whole study's. The parent imports no torch and never
-touches the card.
+its training and evaluation seconds (``wall_s``: summed over the seeds,
+each seed's own in ``seed_rows``), and result.json the rates' and the
+whole study's. The parent imports no torch and never touches the card.
 
     python -m partseg_tpu_torch.tools.quality_study [--px 128] [--base_steps 800]
         [--variants flagship,speed128] [--rate NAME=IMG_S ...] [--seeds 1]
@@ -320,13 +320,16 @@ def main_64(steps: int, base_dir: str, cpu: bool = False):
 def _aggregate_seeds(per_seed: dict[int, dict]) -> dict:
     """Mean metrics over seed replicas: the gate compares MEANS; the
     per-seed rows and the max-min spread ship in the row, so a pass can be
-    weighed against the spread."""
+    weighed against the spread. ``wall_s`` (training and evaluation
+    seconds) is summed over the seeds: the variant's cost in all."""
     keys = ("landmark_err_pct_diag", "equiv_last", "miou", "fg_iou")
     rows = list(per_seed.values())
     agg = dict(rows[0])
     for k in keys:
         vals = [r[k] for r in rows]
         agg[k] = sum(vals) / len(vals)
+    if "wall_s" in agg:
+        agg["wall_s"] = {k: sum(r["wall_s"][k] for r in rows) for k in agg["wall_s"]}
     agg["learned"] = all(r["learned"] for r in rows)
     agg["seg_abs_pass"] = all(r["seg_abs_pass"] for r in rows)
     agg["n_seeds"] = len(rows)

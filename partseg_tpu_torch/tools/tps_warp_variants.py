@@ -1,17 +1,23 @@
 """Time copies of ``csrc/tps_warp.cu`` against each other on one CUDA card.
 
     python -m partseg_tpu_torch.tools.tps_warp_variants A.cu B.cu ... [--stamp B.cu]
+        [--grid 5]
 
 Each source is a full copy of ``tps_warp.cu`` (say an earlier checkout's and
 an edited one), built on its own with ``nvcc`` into ``build/variants/``. On
 the speed128 warp head (32 images of 128²×3, the seeded draws of
-``chip_smoke.py``) every copy's output must equal the first's bit for bit,
-unbanded and at band kh = 56 and 40, f32 and bf16. Then each copy's device
-time per call (torch.profiler) at kh = 0 and 56 is printed, in the order
-A, B, ..., ..., B, A. ``--stamp`` builds a copy with ``%globaltimer`` stamps
-at the phase boundaries of this checkout's kernel (start, basis staged, flow
-done, band start known, end) and prints, per phase, the minimum, median and
-maximum over the CTAs of one call, in ns.
+``chip_smoke.py``; at ``--grid`` other than 5, the same images with that
+TPS grid's weights and basis: grid 20 and 15 take the wide path) every
+copy's output must equal the first's bit for bit, unbanded and at band
+kh = 56 and 40, f32 and bf16. Then each copy's device time per call
+(torch.profiler) at kh = 0 and 56 is printed, in the order A, B, ..., ...,
+B, A. ``--stamp`` builds a copy with ``%globaltimer`` stamps at the phase
+boundaries of this checkout's kernels and prints, per phase, the minimum,
+median and maximum over the CTAs of one call, in ns: for the narrow path
+start, basis staged, flow done, band start known, end (phases staged,
+flow, band, pass2); for the wide path start, first chunk landed, flow
+done (unbanded: with every sample, taken from registers), band start
+known, end (phases first_chunk, flow, band, pass2).
 """
 
 from __future__ import annotations
@@ -25,8 +31,9 @@ from pathlib import Path
 import torch
 
 import chip_smoke as cs
+from partseg_tpu_torch.augment import TPSSampler
 from partseg_tpu_torch.partops.kernels import _build
-from partseg_tpu_torch.partops.kernels.tps_warp import band_config
+from partseg_tpu_torch.partops.kernels.tps_warp import band_config, pad_columns
 
 OUT = _build.BUILD_DIR.parent / "variants"
 
@@ -53,15 +60,37 @@ STAMP_POINTS = [
      "      g_stamps[id] = t0; g_stamps[id + 1] = t1; g_stamps[id + 2] = t2;\n"
      "      g_stamps[id + 3] = t3; g_stamps[id + 4] = gtimer();\n    }\n  }\n"),
 ]
-PHASES = ("staged", "flow", "band", "pass2")
+WIDE_STAMP_POINTS = [
+    ("  // Pass 1, in runs of kRun points", "  unsigned long long t0 = gtimer(), t1 = t0;\n"),
+    ("      const float4* buf = ring4 + (ch % V::kStages) * (kStage / 4) + row0;\n",
+     "      if (ch == 0 && c0 == 0) t1 = gtimer();\n"),
+    ("  // Band mode: the tile's minimum row per image, over the CTA (a warp",
+     "  unsigned long long t2 = gtimer(), t3 = t2;\n"),
+    ("  // Pass 2: a thread per point", "  t3 = gtimer();\n"),
+    ("\n}\n\ntemplate <typename T, int kC, bool kBanded>\ncudaError_t launch_mode",
+     "\n" + STAMP_POINTS[-1][1].rstrip("\n")),
+]
+PHASES = {False: ("staged", "flow", "band", "pass2"),
+          True: ("first_chunk", "flow", "band", "pass2")}
 
 
 def stamped(text: str) -> str:
-    for anchor, add in STAMP_POINTS:
+    for anchor, add in STAMP_POINTS + WIDE_STAMP_POINTS:
         if anchor not in text:
             raise SystemExit(f"--stamp: anchor {anchor!r} not in the source")
         text = text.replace(anchor, add + anchor, 1)
     return text
+
+
+def grid_inputs(gen, grid: int):
+    """The speed128 warp head (images, weights, basis) at TPS grid ``grid``,
+    the basis rows padded to 16 bytes as TPSSampler.warp passes them."""
+    img, weights, basis, _ = cs.warp_inputs(gen)
+    if grid == 5:
+        return img, weights, basis
+    sampler = TPSSampler(grid_size=grid)
+    weights = sampler.sample(gen, img.shape[0]).weights.contiguous()
+    return (img, *pad_columns(weights, sampler.flow_basis(img.shape[1], img.shape[2], "cuda")))
 
 
 def build(sources: dict[str, str]) -> dict[str, ctypes.CDLL]:
@@ -90,13 +119,14 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("sources", nargs="+", type=Path)
     parser.add_argument("--stamp", type=Path, action="append", default=[])
+    parser.add_argument("--grid", type=int, default=5, help="TPS grid (M = grid² + 3)")
     args = parser.parse_args()
     sources = {f"v{i}_{p.stem}": p.read_text() for i, p in enumerate(args.sources)}
     sources.update({f"stamped_{p.stem}": stamped(p.read_text()) for p in args.stamp})
     libs = build(sources)
     names = list(libs)
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 30)
-    img, weights, basis, _ = cs.warp_inputs(gen)
+    img, weights, basis = grid_inputs(gen, args.grid)
     for kh in (0, 56, 40):
         cs._with_band(kh)
         for dtype in (torch.float32, torch.bfloat16):
@@ -107,7 +137,8 @@ def main() -> int:
             for n, o in zip(names, outs):
                 if not torch.equal(o, outs[0]):
                     raise SystemExit(f"{n} differs from {names[0]} at kh={kh} {dtype}")
-    print(json.dumps({"bits": "equal", "variants": names}), flush=True)
+    print(json.dumps({"bits": "equal", "variants": names, "grid": args.grid,
+                      "m": weights.shape[1]}), flush=True)
     im = img.to(torch.bfloat16)
     nw, s = im.shape[0], im.shape[1]
     for kh in (0, 56):
@@ -126,7 +157,7 @@ def main() -> int:
         for n in (n for n in names if n.startswith("stamped_")):
             calls[n]()
             torch.cuda.synchronize()
-            plan = (ctypes.c_int * 6)()
+            plan = (ctypes.c_int * 7)()
             libs[n].partseg_tps_warp_plan(nw, s, s, weights.shape[1], tile, band, plan)
             ctas = plan[3] * plan[4]
             buf = (ctypes.c_ulonglong * (5 * ctas))()
@@ -138,7 +169,8 @@ def main() -> int:
                 v = sorted(v)
                 return [v[0], v[len(v) // 2], v[-1]]
             row = {"start": spread([x[0] - t0 for x in st]), "end": spread([x[4] - t0 for x in st])}
-            row.update({ph: spread([x[i + 1] - x[i] for x in st]) for i, ph in enumerate(PHASES)})
+            phases = PHASES[plan[6] < weights.shape[1]]
+            row.update({ph: spread([x[i + 1] - x[i] for x in st]) for i, ph in enumerate(phases)})
             print(json.dumps({"stamps": n, "kh": kh, "ctas": ctas, "ns_min_median_max": row}),
                   flush=True)
     cs._with_band(0)

@@ -28,7 +28,7 @@ import numpy as np
 import pytest
 import torch
 
-from partseg_tpu_torch.augment import TPSSampler
+from partseg_tpu_torch.augment import TPSParams, TPSSampler
 from partseg_tpu_torch.evals import export_infer, load_exported, make_infer_fn, transfer_batch
 from partseg_tpu_torch.models.partnet import PartNet, PartNetConfig, init_weights
 from partseg_tpu_torch.partops import bilinear_sample
@@ -156,6 +156,26 @@ def test_render_assemble_kernel_odd_shapes(cuda, k, c):
     got = render_assemble(mu, lam, app, 13, 11)
     want = render_assemble_plain(mu, lam, app, 13, 11)
     torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("k", [13, 16])
+@pytest.mark.parametrize("res,c", [(16, 256), (32, 128), (64, 64), (128, 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_render_assemble_kernel_sixteen_part_tile(cuda, k, res, c, dtype):
+    """The 16-part register tile (13 <= K <= 16) at the K = 16 decoder's four
+    scales (deepfashion, human36m, penn_action) at B = 4, against the plain
+    version; two calls give the same bits."""
+    _, mu, sigma = softmax_moments_plain(_logits(40 + k, 4, 32, k)[..., :k])
+    lam = precision_from_cov(sigma)
+    app = torch.randn((4, k, c), generator=torch.Generator().manual_seed(res + k))
+    mu, lam, app = mu.to(cuda).contiguous(), lam.to(cuda).contiguous(), app.to(cuda, dtype)
+    before = render_assemble.launches
+    got = render_assemble(mu, lam, app, res, res)
+    again = render_assemble(mu, lam, app, res, res)
+    want = render_assemble_plain(mu, lam, app, res, res)
+    torch.cuda.synchronize()
+    assert render_assemble.launches == before + 2 and torch.equal(got, again)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * want.abs().max().item())
 
 
@@ -449,6 +469,29 @@ def test_tps_warp_kernel_shapes(cuda, monkeypatch, case, dtype):
     assert torch.equal(got, again)
     tol = 1e-4 if dtype == torch.float32 else 2 ** -8 + 1e-4   # one bf16 ulp below 1
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("band", [0, 56])
+def test_tps_sampler_warp_hands_the_wide_path_16_byte_rows(cuda, monkeypatch, band):
+    """TPSSampler.warp at grid 20 (M = 403) passes the kernel its basis
+    padded to 404 columns and the weights with it; the output equals the
+    wrapper's on the unpadded basis (which pads it per call) bit for bit,
+    and the plain sample at the flow in the kernel's order within one bf16
+    ulp below 1."""
+    _set_band(monkeypatch, band, 0)
+    img, weights, basis = _tps_case(cuda, torch.bfloat16, 32, 128, 128, 3, 20, False, False,
+                                    False)
+    sampler = TPSSampler(grid_size=20)
+    kh, tile = band_config(img.dtype, 128, 128)
+    before = tps_warp.launches
+    got = sampler.warp(TPSParams(weights), img)
+    again = tps_warp(img, weights, basis)
+    flow, _ = kernel_order_flow(weights, basis)
+    want = tps_sample_plain(img.float(), flow, kh, tile).to(img.dtype)
+    torch.cuda.synchronize()
+    assert tps_warp.launches == before + 2 and kh == band
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=2 ** -8 + 1e-4)
 
 
 @pytest.mark.parametrize("case", list(TPS_SHAPES))

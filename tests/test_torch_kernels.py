@@ -36,7 +36,7 @@ from partseg_tpu_torch.partops.kernels import (
 from partseg_tpu_torch.partops.kernels.tps_warp import MAX_CLUSTER as TPS_MAX_CLUSTER
 from partseg_tpu_torch.partops.kernels.tps_warp import SMEM_OPT_IN as TPS_SMEM_OPT_IN
 from partseg_tpu_torch.partops.kernels.tps_warp import SMEM_PER_SM as TPS_SMEM_PER_SM
-from partseg_tpu_torch.partops.kernels.tps_warp import launch_plan
+from partseg_tpu_torch.partops.kernels.tps_warp import launch_plan, pad_columns
 from partseg_tpu_torch.partops.kernels.render_assemble import (
     CHUNK_CHANNELS,
     GROUP_PARTS,
@@ -284,31 +284,48 @@ def test_render_assemble_vjp_sums_over_chunks_and_groups(k, c, kernel):
     (2, 256, 256, 28, 56, 65536, (8192, 2, 8, 8, 1, 160800, 28)),   # a long run: 2 images
     (65535, 8, 8, 12, 0, 0, (128, 8, 1, 1, 8192, 15296, 12)),       # the largest batch
     (1, 8, 8, 396, 0, 0, (128, 4, 1, 1, 1, 232384, 396)),           # M = 396: four images
-    (32, 128, 128, 403, 0, 4096, (128, 8, 1, 128, 4, 56768, 84)),   # grid 20: 5 chunks
-    (32, 128, 128, 228, 56, 4096, (512, 4, 8, 32, 8, 54560, 36)),   # grid 15, band: 7 chunks
+    (32, 128, 128, 403, 0, 4096, (128, 16, 1, 128, 2, 111488, 24)),  # grid 20: the wide path
+    (32, 128, 128, 228, 56, 4096, (512, 8, 8, 32, 4, 108992, 16)),  # grid 15, band: wide
     (32, 128, 128, 212, 56, 4096, (512, 2, 8, 32, 16, 232224, 212)),  # band, M = 212: whole
-    (2, 256, 256, 403, 56, 65536, (8192, 2, 8, 8, 1, 228384, 92)),  # long run: opt-in budget
+    (2, 256, 256, 403, 56, 65536, (8192, 2, 8, 8, 1, 199072, 16)),  # long run: 2 images
 ])
 def test_tps_warp_launch_plan_fits_the_card(b, h, w, m, kh, tile, plan):
     """The kernel's launch: runs of 128 points and groups of up to 8 images
     (band mode: a tile over a cluster of up to 8 CTAs in chunks of 256
     points, 4 images), the images halved while the shared memory exceeds the
-    opt-in limit; where the basis rows do not fit whole even so, chunks of
-    columns 4 mod 8 wide at the most images that leave room for one, in a
-    quarter of an SM where that leaves room (four CTAs to an SM, as at
-    M = 28); the grid covers every point and image within the card's
-    limits."""
+    opt-in limit; where the basis rows do not fit whole even so, the wide
+    path: up to 16 images in runs of 128 points and chunks of 24 columns
+    (band mode: 8 images, the same points and cluster, chunks of 16), in
+    half an SM where that leaves room (two CTAs to an SM, as at grid 20 and
+    grid 15 banded), else in the opt-in limit; the grid covers every point
+    and image within the card's limits."""
     got = launch_plan(b, h, w, m, kh, tile)
     assert tuple(got) == plan
-    assert got.chunk == m or got.smem <= TPS_SMEM_PER_SM // 4 - 1024 or tile == 65536
+    assert got.chunk == m or got.smem <= TPS_SMEM_PER_SM // 2 - 1024 or tile == 65536
     assert got.smem <= TPS_SMEM_OPT_IN and got.cluster <= TPS_MAX_CLUSTER
     assert got.grid_y <= 65535 and got.grid_y * got.group >= b
     assert got.grid_x % got.cluster == 0
-    assert got.chunk == m or (got.chunk < m and got.chunk % 8 == 4)
+    assert got.chunk == m or (got.chunk < m and got.chunk % 8 == 0)
     if kh:
         assert got.points * got.cluster >= tile and got.grid_x // got.cluster * tile == h * w
     else:
         assert got.grid_x * got.points >= h * w
+
+
+def test_tps_warp_pad_columns_keeps_the_flow_terms():
+    """The wide path's 16-byte rows: zero columns appended to w and the
+    basis up to a multiple of 4, the basis a new 16-byte aligned tensor (a
+    copy even where no column is added, for a view that starts off 16
+    bytes)."""
+    rng = np.random.default_rng(31)
+    w, b = t(rng.standard_normal((2, 403, 2))), t(rng.standard_normal((65, 403)))
+    pw, pb = pad_columns(w, b)
+    assert pw.shape == (2, 404, 2) and pb.shape == (65, 404) and pb.is_contiguous()
+    assert torch.equal(pw[:, :403], w) and torch.equal(pb[:, :403], b)
+    assert not pw[:, 403:].any() and not pb[:, 403:].any() and pb.data_ptr() % 16 == 0
+    view = pb.reshape(-1)[404:].reshape(64, 404)[:, :400].contiguous()
+    pw, pb = pad_columns(pw[:, :400], view)
+    assert pb.shape == (64, 400) and torch.equal(pb, view) and pb.data_ptr() != view.data_ptr()
 
 
 def test_tps_warp_rejects_a_basis_beyond_shared_memory(monkeypatch):

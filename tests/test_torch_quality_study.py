@@ -161,6 +161,18 @@ def test_aggregate_seeds_matches_jax():
     assert pq._aggregate_seeds(dict(per_seed)) == jq._aggregate_seeds(dict(per_seed))
 
 
+def test_aggregate_seeds_sums_wall_seconds_over_seeds():
+    """A seed-averaged row's ``wall_s`` covers every seed (the sum of the
+    seeds' training and evaluation seconds); each seed keeps its own."""
+    per_seed = {s: {**fake_row(f"flagship_s{s}", 800),
+                    "wall_s": {"train": 100.5 - 17.25 * s, "evaluate": 20.5 + 3.5 * s}}
+                for s in range(2)}
+    agg = pq._aggregate_seeds(dict(per_seed))
+    assert agg["wall_s"] == {"train": 100.5 + 83.25, "evaluate": 20.5 + 24.0}
+    assert {s: r["wall_s"] for s, r in agg["seed_rows"].items()} == {
+        "0": {"train": 100.5, "evaluate": 20.5}, "1": {"train": 83.25, "evaluate": 24.0}}
+
+
 FAKE_BENCH = """
 import json, pathlib, sys
 log = pathlib.Path(sys.argv[1])

@@ -1,0 +1,5 @@
+"""Device ms per request in convolution and matrix-product kernels."""
+
+
+def read(ctx):
+    return ctx.traced.category_ms(("conv_matmul",))

@@ -60,7 +60,8 @@ Phases (one JSON line each; any failure exits non-zero):
                     bf16 collectives; a narrow f32 spatial step against the
                     unsharded step; celeba256_spatial at full width through
                     the loop (32 images per data shard): img/s, peak memory
-                    per rank, the halo and reduction ms of a step.
+                    per rank, the halo and reduction device ms of a step
+                    from their spans under torch.profiler.
      evals        — the landmark and segmentation protocols with the
                     CelebA model (bf16, B = 256) over a 600-example
                     synthetic split, remainder batch included; card at f32
@@ -180,6 +181,7 @@ from partseg_tpu_torch.augment import (
     TPSSampler,
     keyed_pair_draws,
 )
+from partseg_tpu_torch import tracing
 from partseg_tpu_torch.bench import build_trainer
 from partseg_tpu_torch.configs import model_config, train_config
 from partseg_tpu_torch.data import SyntheticBlobs, make_loader
@@ -206,7 +208,6 @@ from partseg_tpu_torch.partops.kernels import (
     render_assemble_backward,
     render_assemble_plain,
     render_assemble_vjp,
-    reset_launch_counts,
     softmax_moments,
     softmax_moments_plain,
     tps_warp,
@@ -776,9 +777,9 @@ def phase_backward(cfg) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
     report = {}
     for name, (fn, plain, inputs) in backward_cases(gen).items():
-        before = render_assemble.backward_launches
+        before = tracing.counter(BACKWARD_LAUNCHES)
         got = _grads(fn, inputs, SEED + 12)
-        launched = render_assemble.backward_launches - before
+        launched = tracing.counter(BACKWARD_LAUNCHES) - before
         want = _grads(plain, inputs, SEED + 12)
         torch.cuda.synchronize()
         errs = [_scaled_err(a, b) for a, b in zip(got, want)]
@@ -817,6 +818,10 @@ def phase_backward(cfg) -> dict:
     return report
 
 
+def serving_launches() -> dict:
+    return {k: launch_counts()[k] for k in ("softmax_moments", "render_assemble")}
+
+
 def phase_serving(cfg) -> dict:
     """The serving path at full width, counting kernel launches."""
     model = init_weights(PartNet(cfg), seed=SEED).eval()
@@ -826,14 +831,14 @@ def phase_serving(cfg) -> dict:
     infer = make_infer_fn(model)
 
     torch.cuda.synchronize()
-    reset_launch_counts()
+    tracing.reset()
     out = infer(x_s)
-    after_infer = {"softmax_moments": softmax_moments.launches,
-                   "render_assemble": render_assemble.launches}
+    after_infer = serving_launches()
     recon = transfer_batch(model, x_s, x_a)
     torch.cuda.synchronize()
-    launches = {"softmax_moments": softmax_moments.launches,
-                "render_assemble": render_assemble.launches}
+    launches = serving_launches()
+    spans = tracing.snapshot()["spans"]
+    check(spans == {}, f"the serving path ran spans with no profiler on: {spans}")
 
     m, k = cfg.map_size, cfg.n_parts
     shapes = {"heatmaps": (BATCH, m, m, k), "logits": (BATCH, m, m, k + 1),
@@ -891,15 +896,18 @@ def phase_parity(cfg) -> None:
 
 
 
+BACKWARD_LAUNCHES = "kernel.render_assemble.backward_launches"
 TRAIN_LAUNCHES = {"tps_warp": 1, "softmax_moments": 4, "render_assemble": 6,
                   "bilinear_sample": 0, "render_assemble_backward": 6}
 
 
 def launch_counts() -> dict:
-    return {"softmax_moments": softmax_moments.launches,
-            "render_assemble": render_assemble.launches,
-            "tps_warp": tps_warp.launches, "bilinear_sample": bilinear_sample_fused.launches,
-            "render_assemble_backward": render_assemble.backward_launches}
+    """The hand kernels' launches since the registry's last reset (``tracing``)."""
+    return {"softmax_moments": tracing.counter("kernel.softmax_moments.launches"),
+            "render_assemble": tracing.counter("kernel.render_assemble.launches"),
+            "tps_warp": tracing.counter("kernel.tps_warp.launches"),
+            "bilinear_sample": tracing.counter("kernel.bilinear_sample.launches"),
+            "render_assemble_backward": tracing.counter(BACKWARD_LAUNCHES)}
 
 
 def phase_train() -> dict:
@@ -912,7 +920,7 @@ def phase_train() -> dict:
     torch.cuda.synchronize()
     before = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
     lr = warmup_cosine(cfg.optim)(state.opt_state.count)
-    reset_launch_counts()
+    tracing.reset()
     state, metrics = period(state, batches, cfg.seed)
     torch.cuda.synchronize()
     launches = launch_counts()
@@ -1100,7 +1108,7 @@ def phase_train_zeros() -> dict:
     state, period, batches, _ = build_trainer(cfg, TRAIN_BATCH, seed=SEED)
     state, _ = period(state, batches, cfg.seed)
     torch.cuda.synchronize()
-    reset_launch_counts()
+    tracing.reset()
     state, metrics = period(state, batches, cfg.seed)
     torch.cuda.synchronize()
     launches = launch_counts()
@@ -1137,7 +1145,7 @@ def phase_train_k16(smi: str, old=None) -> dict:
     torch.cuda.synchronize()
     before = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
     lr = warmup_cosine(cfg.optim)(state.opt_state.count)
-    reset_launch_counts()
+    tracing.reset()
     state, metrics = period(state, batches, cfg.seed)
     torch.cuda.synchronize()
     launches = launch_counts()
@@ -1231,7 +1239,7 @@ def phase_wide_decodes(smi: str, old=None) -> None:
     ms, and the bound: bytes, the cotangent g read once), beside the
     backward's launch plan."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 50)
-    before = render_assemble.backward_launches
+    before = tracing.counter(BACKWARD_LAUNCHES)
     rows = []
     for label, k_, mu_, lam_, app, res, g, kind in wide_decode_cases(gen):
         b, _, f = app.shape
@@ -1250,7 +1258,7 @@ def phase_wide_decodes(smi: str, old=None) -> None:
                      "ms": event_ms(lambda: render_assemble_backward(
                          mu_, lam_, app, res, res, kind, g), inner=KERNEL_INNER),
                      "bound_ms": bound, "bound_by": by, "device_over_bound": dev_ms / bound})
-    check(render_assemble.backward_launches > before,
+    check(tracing.counter(BACKWARD_LAUNCHES) > before,
           "timing_wide_decodes: the backward kernel did not launch")
     emit("timing_wide_decodes", batch=STUDY_BATCH, dtype="bfloat16 appearance", rows=rows,
          nvidia_smi=smi)
@@ -1606,7 +1614,7 @@ def phase_train_loop() -> dict:
             runs = {k: os.path.join(tmp, k) for k in ("full", "split", "cli", "device",
                                                       "default")}
             full_cfg = _loop_config(runs["full"], [f"steps={LOOP_STEPS}"])
-            reset_launch_counts()
+            tracing.reset()
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
@@ -1777,7 +1785,7 @@ def child_dp(out_dir: Path, backend: str) -> None:
 
     state = create_state(cfg, model, step=DP_START)
     step = make_train_step(cfg, model, sampler, perceptual, warp_on=True, group=mesh.data_group)
-    reset_launch_counts()
+    tracing.reset()
     with recording("dp"):
         state, metrics = step(state, {"image": shard(full[0], rank),
                                       "aug_id": aug_ids(DP_BATCH, rank, DP_START, 0, gb)}, seed)
@@ -1826,7 +1834,7 @@ def child_dp(out_dir: Path, backend: str) -> None:
         state, metrics = period(state, batches, seed)
     torch.cuda.synchronize()
     dist.barrier()
-    reset_launch_counts()
+    tracing.reset()
     t0 = time.perf_counter()
     for _ in range(DP_PERIODS):
         state, metrics = period(state, batches, seed)
@@ -1959,11 +1967,12 @@ def child_spatial(out_dir: Path) -> None:
       3. celeba256_spatial at full width through train(): SPATIAL_BATCH per
          data shard, SPATIAL_STEPS steps on the synthetic dataset at 256 px;
          its logged img/s, peak memory, launches and collectives; then one
-         step with TIMED on for the halo and reduction seconds."""
+         step timed whole, and one under torch.profiler, whose spans
+         ``spatial.halo`` and ``spatial.reduce`` give the device ms of the
+         collectives (``tracing``; nothing synchronises around them)."""
     import torch.distributed as dist
 
     from partseg_tpu_torch.dist import make_spatial_mesh
-    from partseg_tpu_torch.parallel import COLLECTIVES, TIMED, reset_collective_counts
     from partseg_tpu_torch.parallel.spatial_train import make_spatial_train_step
     from partseg_tpu_torch.train.loop import train
 
@@ -2022,15 +2031,15 @@ def child_spatial(out_dir: Path) -> None:
         "log_every=1", "image_log_every=0", "ckpt_every=1000", f"ckpt_dir={run!r}"])
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
-    reset_launch_counts()
-    reset_collective_counts()
+    tracing.reset()
     t0 = time.perf_counter()
     with recording("spatial"):
         state = train(cfg, device=dev)
     torch.cuda.synchronize()
     out["loop_wall_s"] = time.perf_counter() - t0
     out["launches"] = launch_counts()
-    out["collectives_per_step"] = {k: v / SPATIAL_STEPS for k, v in COLLECTIVES.items()}
+    out["collectives_per_step"] = {k: tracing.counter(f"spatial.{k}") / SPATIAL_STEPS
+                                   for k in ("halo", "reduce")}
     out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
     if rank == 0:
         log = _log_records(run)
@@ -2043,7 +2052,7 @@ def child_spatial(out_dir: Path) -> None:
     check(out["launches"]["tps_warp"] == SPATIAL_STEPS,
           f"celeba256_spatial launches {out['launches']} over {SPATIAL_STEPS} steps")
 
-    # One more step, timed whole, then with each collective timed.
+    # One more step, timed whole, then one traced: the spans of the collectives.
     mesh = make_spatial_mesh(2)
     perceptual = build_perceptual(cfg, dev)
     sampler = cfg.augment.make_sampler()
@@ -2057,17 +2066,22 @@ def child_spatial(out_dir: Path) -> None:
     state, _ = step(state, batch, cfg.seed + 1)
     torch.cuda.synchronize()
     out["step_ms"] = (time.perf_counter() - t0) * 1e3
-    reset_collective_counts()
-    TIMED["on"] = True
+    tracing.reset()
     dist.barrier()
-    t0 = time.perf_counter()
-    state, metrics = step(state, batch, cfg.seed + 1)
-    torch.cuda.synchronize()
-    TIMED["on"] = False
-    out["timed_step_ms"] = (time.perf_counter() - t0) * 1e3
-    out["halo_ms_per_step"] = TIMED["halo"] * 1e3
-    out["reduce_ms_per_step"] = TIMED["reduce"] * 1e3
-    out["collectives_timed_step"] = dict(COLLECTIVES)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, cfg.seed + 1)
+        torch.cuda.synchronize()
+        out["traced_step_ms"] = (time.perf_counter() - t0) * 1e3
+    spans = tracing.snapshot()["spans"]
+    out["halo_ms_per_step"] = spans["spatial.halo"]["device_ms"]
+    out["reduce_ms_per_step"] = spans["spatial.reduce"]["device_ms"]
+    out["collectives_traced_step"] = {k: tracing.counter(f"spatial.{k}")
+                                      for k in ("halo", "reduce")}
+    check(out["collectives_traced_step"] == {k: spans[f"spatial.{k}"]["calls"]
+                                             for k in ("halo", "reduce")},
+          f"spatial collectives {out['collectives_traced_step']} against their spans {spans}")
     check(all(math.isfinite(v.item()) for v in metrics.values()),
           f"celeba256_spatial step metrics not finite on rank {rank}")
     if rank == 0:
@@ -2096,7 +2110,7 @@ def phase_spatial(smi: str) -> dict:
          step_ms=[x["step_ms"] for x in ranks],
          halo_ms_per_step=[x["halo_ms_per_step"] for x in ranks],
          reduce_ms_per_step=[x["reduce_ms_per_step"] for x in ranks],
-         timed_step_ms=[x["timed_step_ms"] for x in ranks],
+         traced_step_ms=[x["traced_step_ms"] for x in ranks],
          collectives_per_step=ranks[0]["collectives_per_step"],
          launches=[x["launches"] for x in ranks], path_kernels=ranks[0]["path_kernels"],
          loop_wall_s=[x["loop_wall_s"] for x in ranks])
@@ -2383,7 +2397,7 @@ def phase_evals(cfg, served: dict, smi: str) -> dict:
     ds = SyntheticBlobs(size=cfg.img_size, n_blobs=10, n_examples=EVAL_EXAMPLES, with_masks=True)
     batches = -(-EVAL_EXAMPLES // BATCH)
     torch.cuda.synchronize()
-    reset_launch_counts()
+    tracing.reset()
     t0 = time.perf_counter()
     mu, gt = collect_mu(model, _split_loader(ds, BATCH))
     first_s = time.perf_counter() - t0
@@ -2412,7 +2426,7 @@ def phase_evals(cfg, served: dict, smi: str) -> dict:
             seen.append(len(b["image"]))
             yield b
 
-    reset_launch_counts()
+    tracing.reset()
     seg = evaluate_segmentation(model, counted(_split_loader(ds, BATCH)), n_classes=11)
     seg_launches = launch_counts()
     check(sum(seen) == EVAL_EXAMPLES and len(seen) == batches,
@@ -2484,11 +2498,12 @@ def phase_export(cfg, served: dict, smi: str) -> dict:
     launches = dict.fromkeys(launch_counts(), 0)
     for b, xb in ((BATCH, x), (37, x37)):
         torch.cuda.synchronize()
-        reset_launch_counts()
+        tracing.reset()
         got = serve(xb)
         torch.cuda.synchronize()
-        check(softmax_moments.launches == 1,
-              f"exported program at B = {b} launched softmax_moments {softmax_moments.launches} times")
+        check(launch_counts()["softmax_moments"] == 1,
+              f"exported program at B = {b} launched softmax_moments "
+              f"{launch_counts()['softmax_moments']} times")
         launches = {k: v + launch_counts()[k] for k, v in launches.items()}
         want = eager(xb)
         errs[b] = {}
@@ -2529,7 +2544,7 @@ def phase_golden(smi: str) -> dict:
     error (tests/_torch_golden.py)."""
     golden = _load_module(ROOT / "tests" / "_torch_golden.py")
 
-    reset_launch_counts()
+    tracing.reset()
     result = golden.check("cuda")
     launches = launch_counts()
     emit("golden", outputs=result, launches=launches, nvidia_smi=smi)
@@ -2552,7 +2567,7 @@ def phase_validate(run_dir: str, smi: str) -> dict:
     from partseg_tpu_torch.tools import validate_segmentation, validate_synthetic
 
     torch.cuda.synchronize()
-    reset_launch_counts()
+    tracing.reset()
     t0 = time.perf_counter()
     result = validate_synthetic.main(VALIDATE_STEPS, run_dir, device="cuda")
     torch.cuda.synchronize()
@@ -2598,7 +2613,7 @@ def phase_cli(run_dir: str, smi: str) -> dict:
         cv2 = None
     common = ["--config", "synthetic", "--ckpt_dir", run_dir]
     restored = f"[infer] restored step {VALIDATE_STEPS}"
-    reset_launch_counts()
+    tracing.reset()
     rng = np.random.default_rng(SEED)
     imgs = [rng.uniform(0, 1, (64, 64, 3)).astype(np.float32) for _ in range(2)]
     with tempfile.TemporaryDirectory() as tmp:
@@ -2682,7 +2697,7 @@ def phase_trace(smi: str) -> dict:
     kernels' categories must be in it, and the categories must sum to the
     total."""
     torch.cuda.synchronize()
-    reset_launch_counts()
+    tracing.reset()
     with _env(TRACE_BATCH=str(TRAIN_BATCH), TRACE_CONFIG="speed128", TRACE_SET=""), \
             _captured() as log:
         result = trace_step.main()
@@ -2709,7 +2724,7 @@ def phase_components(smi: str) -> dict:
     from partseg_tpu_torch.tools import profile_components
 
     torch.cuda.synchronize()
-    reset_launch_counts()
+    tracing.reset()
     with _captured():
         rows = profile_components.main()
     launches = launch_counts()
@@ -2731,7 +2746,7 @@ def phase_bench_infer(smi: str) -> dict:
     from partseg_tpu_torch.tools import bench_infer
 
     torch.cuda.synchronize()
-    reset_launch_counts()
+    tracing.reset()
     with _captured():
         result = bench_infer.main(["--config", "celeba", "--batch", str(BATCH)])
     launches = launch_counts()
@@ -2753,7 +2768,7 @@ def phase_probe_warp(smi: str) -> dict:
     from partseg_tpu_torch.tools import probe_warp_parity
 
     torch.cuda.synchronize()
-    reset_launch_counts()
+    tracing.reset()
     with _captured():
         result = probe_warp_parity.main()
     launches = launch_counts()
@@ -2797,7 +2812,7 @@ def phase_quality(smi: str) -> dict:
         cfg = study_config(name)
         state, period, batches, _ = build_trainer(cfg, STUDY_BATCH, seed=SEED)
         torch.cuda.synchronize()
-        reset_launch_counts()
+        tracing.reset()
         state, metrics = period(state, batches, cfg.seed)
         torch.cuda.synchronize()
         m = cfg.model
@@ -2882,7 +2897,7 @@ def phase_feed(smi: str, demand: float) -> dict:
     builds on this host, and its line says why where it does not."""
     from partseg_tpu_torch.tools import feed_bench
 
-    reset_launch_counts()
+    tracing.reset()
     with tempfile.TemporaryDirectory() as tmp:
         args = ["--dir", tmp, "--n_images", str(FEED_IMAGES), "--src_wh", "178x218",
                 "--batches", "50", "--warmup", "5", "--demand", str(demand)]

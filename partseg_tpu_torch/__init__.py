@@ -21,6 +21,7 @@ Layering (mirrors partseg_tpu):
               study, tracing, component, serving and feed benches
   configs   — model and train presets; convert — Flax params → state_dict
   bench     — train-step throughput on the card
+  tracing   — spans and counters, in one registry
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"`` (see ``device.default_device``). Importing the package

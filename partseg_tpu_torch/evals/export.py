@@ -33,6 +33,7 @@ import torch
 from torch import nn
 
 from partseg_tpu_torch.models.partnet import PartNet
+from partseg_tpu_torch.tracing import span
 
 
 def model_device(model: nn.Module) -> torch.device:
@@ -74,13 +75,15 @@ class InferForward(nn.Module):
 
 def make_infer_fn(model: PartNet) -> Callable[[torch.Tensor], dict]:
     """Batched inference forward: images [B, H, W, 3] in [0,1] (numpy or
-    tensor) → ``InferForward``'s dict, on the model's device."""
+    tensor) → ``InferForward``'s dict, on the model's device; each call in
+    the span ``serve.infer``."""
     device = model_device(model)
     forward = InferForward(model)
 
     @torch.inference_mode()
     def infer(images) -> dict:
-        return forward(as_images(images, device))
+        with span("serve.infer"):
+            return forward(as_images(images, device))
 
     return infer
 

@@ -19,19 +19,22 @@ from partseg_tpu_torch.evals.export import as_images, model_device
 from partseg_tpu_torch.evals.infer import load_model_and_params, read_image, write_image
 from partseg_tpu_torch.models.partnet import PartNet
 from partseg_tpu_torch.partops.pooling import pool_appearance
+from partseg_tpu_torch.tracing import span
 
 
 @torch.inference_mode()
 def transfer_batch(model: PartNet, shape_imgs, app_imgs) -> torch.Tensor:
     """shape_imgs, app_imgs [B, H, W, 3] in [0,1] → [B, S, S, 3] tensor on
-    the model's device (S = the decoder's output size)."""
-    device = model_device(model)
-    xs = as_images(shape_imgs, device)
-    xa = as_images(app_imgs, device)
-    _, mu, sigma = model.shape_stats(model.encode_shape(xs))
-    parts_a, _, _ = model.shape_stats(model.encode_shape(xa))
-    app_vec = pool_appearance(model.encode_appearance(xa), parts_a)
-    return model.decode(mu, sigma, app_vec)
+    the model's device (S = the decoder's output size); in the span
+    ``serve.transfer``."""
+    with span("serve.transfer"):
+        device = model_device(model)
+        xs = as_images(shape_imgs, device)
+        xa = as_images(app_imgs, device)
+        _, mu, sigma = model.shape_stats(model.encode_shape(xs))
+        parts_a, _, _ = model.shape_stats(model.encode_shape(xa))
+        app_vec = pool_appearance(model.encode_appearance(xa), parts_a)
+        return model.decode(mu, sigma, app_vec)
 
 
 def transfer(model: PartNet, shape_img, app_img) -> np.ndarray:

@@ -8,7 +8,9 @@ model.
 
 Serving uses the components (``encode_shape``, ``shape_stats``,
 ``segmentation``, ``encode_appearance``, ``decode``); ``forward`` is the
-whole training-time forward.
+whole training-time forward. Each call of an encoder or the decoder runs
+in its span (``partnet.shape_encoder``, ``partnet.appearance_encoder``,
+``partnet.decoder``; ``tracing``).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from partseg_tpu_torch.partops.kernels import softmax_moments
 from partseg_tpu_torch.partops.moments import soft_argmax_moments
 from partseg_tpu_torch.partops.pooling import pool_appearance
 from partseg_tpu_torch.partops.softmax import normalize_maps, part_softmax
+from partseg_tpu_torch.tracing import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,7 +112,8 @@ class PartNet(nn.Module):
 
     def encode_shape(self, x: torch.Tensor) -> torch.Tensor:
         """x [B,S,S,3] → part logits [B,S/2,S/2,K(+1)] f32."""
-        return self.shape_enc(x)
+        with span("partnet.shape_encoder"):
+            return self.shape_enc(x)
 
     def shape_stats(self, logits: torch.Tensor):
         """logits → (spatial part distributions [B,h,w,K], μ, Σ), all f32.
@@ -126,33 +130,35 @@ class PartNet(nn.Module):
 
     def encode_appearance(self, x: torch.Tensor) -> torch.Tensor:
         """x [B,S,S,3] → appearance features [B,S/2,S/2,C]."""
-        return self.app_enc(x)
+        with span("partnet.appearance_encoder"):
+            return self.app_enc(x)
 
     def segmentation(self, logits: torch.Tensor) -> torch.Tensor:
         """Per-pixel part softmax over the K(+bg) channels."""
         return part_softmax(logits)
 
     def decode(self, mu, sigma, appearance) -> torch.Tensor:
-        return self.decoder(mu, sigma, appearance)
+        with span("partnet.decoder"):
+            return self.decoder(mu, sigma, appearance)
 
     # ------------------------------------------------------------ full forward
 
     def forward(self, x_s: torch.Tensor, x_a: torch.Tensor) -> PartNetOutputs:
         b = x_s.shape[0]
         # One shape-encoder pass over [x_a; x_s], as the JAX package runs it.
-        logits_both = self.shape_enc(torch.cat([x_a, x_s], dim=0))
+        logits_both = self.encode_shape(torch.cat([x_a, x_s], dim=0))
         logits_a, logits_s = logits_both[:b], logits_both[b:]
         parts_a, mu_a, sigma_a = self.shape_stats(logits_a)
         parts_s, mu_s, sigma_s = self.shape_stats(logits_s)
 
-        feats_s = self.app_enc(x_s)
+        feats_s = self.encode_appearance(x_s)
         if self.cfg.pool_masks == "pixel":
             masks_s = self.segmentation(logits_s)[..., : self.cfg.n_parts]
         else:
             masks_s = parts_s
         appearance = pool_appearance(feats_s, masks_s)
 
-        recon = self.decoder(mu_a, sigma_a, appearance)
+        recon = self.decode(mu_a, sigma_a, appearance)
         return PartNetOutputs(
             recon=recon,
             logits_a=logits_a, logits_s=logits_s,

@@ -2,11 +2,8 @@
 counterpart of partseg_tpu/parallel."""
 
 from partseg_tpu_torch.parallel.spatial import (
-    COLLECTIVES,
-    TIMED,
     group_sum,
     halo_exchange,
-    reset_collective_counts,
     sharded_pool_appearance,
     sharded_render_gaussians,
     sharded_soft_argmax_moments,
@@ -15,11 +12,8 @@ from partseg_tpu_torch.parallel.spatial import (
 )
 
 __all__ = [
-    "COLLECTIVES",
-    "TIMED",
     "group_sum",
     "halo_exchange",
-    "reset_collective_counts",
     "sharded_pool_appearance",
     "sharded_render_gaussians",
     "sharded_soft_argmax_moments",

@@ -39,57 +39,32 @@ halo exchange is an all_gather, not send/recv.
 
 from __future__ import annotations
 
-import time
-
 import torch
 import torch.distributed as dist
 
+from partseg_tpu_torch import tracing
 from partseg_tpu_torch.dist.mesh import group_rank, group_size
 from partseg_tpu_torch.partops.coords import coord_grid, moment_basis
 from partseg_tpu_torch.partops.moments import moments_from_raw, precision_from_cov
 from partseg_tpu_torch.partops.render import RENDER_KERNELS
 
-# Collectives issued by the spatial path (forward and backward), by kind:
-# "halo" the all_gathers (halo rows, and the step's input rows), "reduce"
-# the all-reduces of the sums and maxima. With TIMED["on"] each one also
-# synchronises its device before and after and adds its wall seconds to
-# TIMED[kind] (a measurement mode: it serialises the step). chip_smoke.py
-# reads both; reset_collective_counts zeroes them.
-COLLECTIVES = {"halo": 0, "reduce": 0}
-TIMED = {"on": False, "halo": 0.0, "reduce": 0.0}
-
-
-def reset_collective_counts() -> None:
-    for k in COLLECTIVES:
-        COLLECTIVES[k] = 0
-        TIMED[k] = 0.0
-
-
-def collective(kind: str, fn, x: torch.Tensor) -> None:
-    """Run the collective ``fn()`` on ``x``'s device and count it."""
-    COLLECTIVES[kind] += 1
-    if not TIMED["on"]:
-        fn()
-        return
-    sync = torch.cuda.synchronize if x.is_cuda else (lambda *a: None)
-    sync(x.device)
-    t0 = time.perf_counter()
-    fn()
-    sync(x.device)
-    TIMED[kind] += time.perf_counter() - t0
-
-
 def all_reduce_(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
-    """In-place all-reduce of a contiguous tensor over ``group``."""
-    collective("reduce", lambda: dist.all_reduce(x, op=op, group=group), x)
+    """In-place all-reduce of a contiguous tensor over ``group``: the span
+    and counter ``spatial.reduce`` (``tracing``)."""
+    tracing.count("spatial.reduce")
+    with tracing.span("spatial.reduce"):
+        dist.all_reduce(x, op=op, group=group)
     return x
 
 
 def all_gather(x: torch.Tensor, group) -> list[torch.Tensor]:
-    """Every rank's ``x`` (the same shape on each), in group order."""
+    """Every rank's ``x`` (the same shape on each), in group order: the span
+    and counter ``spatial.halo`` (halo rows, and the step's input rows)."""
     x = x.contiguous()
     out = [torch.empty_like(x) for _ in range(group_size(group))]
-    collective("halo", lambda: dist.all_gather(out, x, group=group), x)
+    tracing.count("spatial.halo")
+    with tracing.span("spatial.halo"):
+        dist.all_gather(out, x, group=group)
     return out
 
 

@@ -1,9 +1,11 @@
 """CUDA kernel wrappers for the JAX package's Pallas kernels. Each
 wrapper validates its inputs, runs the plain PyTorch version on a CPU
 tensor, and launches its hand-written kernel (built from ``csrc/`` at
-first use) on a CUDA tensor, counting forward launches in its
-``launches`` attribute (and render_assemble its backward kernel's in
-``backward_launches``). Each is an autograd Function."""
+first use) on a CUDA tensor, counting forward launches in the registry
+counter ``kernel.<name>.launches`` (``partseg_tpu_torch.tracing``; and
+render_assemble its backward kernel's in
+``kernel.render_assemble.backward_launches``). Each is an autograd
+Function."""
 
 from partseg_tpu_torch.partops.kernels.bilinear_sample import (
     bilinear_sample_fused,
@@ -21,15 +23,6 @@ from partseg_tpu_torch.partops.kernels.softmax_moments import (
 )
 from partseg_tpu_torch.partops.kernels.tps_warp import tps_warp, tps_warp_plain
 
-KERNELS = (softmax_moments, render_assemble, tps_warp, bilinear_sample_fused)
-
-
-def reset_launch_counts() -> None:
-    for fn in KERNELS:
-        fn.launches = 0
-    render_assemble.backward_launches = 0
-
-
 __all__ = [
     "softmax_moments",
     "softmax_moments_plain",
@@ -41,6 +34,4 @@ __all__ = [
     "tps_warp_plain",
     "bilinear_sample_fused",
     "bilinear_sample_plain",
-    "KERNELS",
-    "reset_launch_counts",
 ]

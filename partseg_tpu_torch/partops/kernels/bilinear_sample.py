@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from partseg_tpu_torch import tracing
 from partseg_tpu_torch.partops.kernels import _build
 from partseg_tpu_torch.partops.warp import axis_taps, gather_sample, pixel_index
 
@@ -91,7 +92,7 @@ def _launch(image: torch.Tensor, coords: torch.Tensor, with_grads: bool):
                   image.data_ptr(), int(image.dtype == torch.bfloat16), coords.data_ptr(),
                   out.data_ptr(), d_fy.data_ptr() if with_grads else None,
                   d_fx.data_ptr() if with_grads else None, b, h, w, c, n, int(with_grads))
-    bilinear_sample_fused.launches += 1
+    tracing.count("kernel.bilinear_sample.launches")
     return (out, d_fy, d_fx) if with_grads else out
 
 
@@ -157,5 +158,3 @@ def bilinear_sample_fused(image: torch.Tensor, coords: torch.Tensor) -> torch.Te
     with_grads = torch.is_grad_enabled() and (image.requires_grad or coords.requires_grad)
     return _BilinearSample.apply(image, coords, with_grads)
 
-
-bilinear_sample_fused.launches = 0

@@ -21,8 +21,8 @@ computes out[b, u, c] = Σ_k φ_k(u)·a[b, k, c] without writing the
   takes a whole image, else per-block partial sums and a fixed-order sum
   over them: no atomics, so the result is the same on every run); on a
   CPU tensor ``render_assemble_vjp``, the plain version, does.
-  ``render_assemble.backward_launches`` counts the wrapper's calls that
-  launch it.
+  The registry counter ``kernel.render_assemble.backward_launches``
+  (``tracing``) counts the wrapper's calls that launch it.
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ import torch
 
 from partseg_tpu_torch.partops.assembly import assemble_decoder_input
 from partseg_tpu_torch.partops.coords import coord_grid
+from partseg_tpu_torch import tracing
 from partseg_tpu_torch.partops.kernels import _build
 from partseg_tpu_torch.partops.render import RENDER_KERNELS, render_gaussians
 
@@ -116,7 +117,7 @@ def _launch(mu, lam, app, h, w, kernel):
     _build.launch("partseg_render_assemble", app.device,
                   mu.data_ptr(), lam.data_ptr(), app.data_ptr(), int(app.dtype == torch.bfloat16),
                   out.data_ptr(), b, k, c, h, w, int(kernel == "gauss"))
-    render_assemble.launches += 1
+    tracing.count("kernel.render_assemble.launches")
     return out
 
 
@@ -134,7 +135,7 @@ def _launch_backward(mu, lam, app, h, w, kernel, g):
                   mu.data_ptr(), lam.data_ptr(), app.data_ptr(), g.data_ptr(),
                   int(app.dtype == torch.bfloat16), part.data_ptr() if rows else None, d_app.data_ptr(),
                   d_mu.data_ptr(), d_lam.data_ptr(), b, k, c, h, w, int(kernel == "gauss"), tile)
-    render_assemble.backward_launches += 1
+    tracing.count("kernel.render_assemble.backward_launches")
     return d_mu, d_lam, d_app
 
 
@@ -202,6 +203,3 @@ def render_assemble(mu: torch.Tensor, lam: torch.Tensor, app: torch.Tensor,
         raise ValueError(f"render_assemble runs on CPU or CUDA, got {app.device}")
     return _RenderAssemble.apply(mu, lam, app, h, w, kernel)
 
-
-render_assemble.launches = 0
-render_assemble.backward_launches = 0

@@ -33,6 +33,7 @@ from __future__ import annotations
 import torch
 
 from partseg_tpu_torch.partops.coords import moment_basis
+from partseg_tpu_torch import tracing
 from partseg_tpu_torch.partops.kernels import _build
 from partseg_tpu_torch.partops.moments import moments_from_raw, soft_argmax_moments
 from partseg_tpu_torch.partops.softmax import spatial_softmax
@@ -83,7 +84,7 @@ def _softmax_moments_cuda(logits: torch.Tensor):
     raw = torch.empty((b, k, 5), device=logits.device, dtype=torch.float32)
     _build.launch("partseg_softmax_moments_f32", logits.device,
                   logits.data_ptr(), parts.data_ptr(), raw.data_ptr(), b, h, w, k, ld)
-    softmax_moments.launches += 1
+    tracing.count("kernel.softmax_moments.launches")
     return (parts, *moments_from_raw(raw))
 
 
@@ -153,5 +154,3 @@ def softmax_moments(logits: torch.Tensor):
     implementations validate the logits as ``_check`` says."""
     return torch.ops.partseg.softmax_moments(logits)
 
-
-softmax_moments.launches = 0

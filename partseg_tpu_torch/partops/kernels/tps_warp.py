@@ -46,6 +46,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from partseg_tpu_torch import tracing
 from partseg_tpu_torch.partops.kernels import _build
 from partseg_tpu_torch.partops.kernels.bilinear_sample import (
     bilinear_sample_vjp,
@@ -273,7 +274,7 @@ def _launch(image, weights, basis, kh: int, tile: int) -> torch.Tensor:
     _build.launch("partseg_tps_warp", image.device,
                   image.data_ptr(), int(image.dtype == torch.bfloat16), weights.data_ptr(),
                   basis.data_ptr(), out.data_ptr(), b, h, w, c, weights.shape[1], tile, kh)
-    tps_warp.launches += 1
+    tracing.count("kernel.tps_warp.launches")
     return out
 
 
@@ -313,5 +314,3 @@ def tps_warp(image: torch.Tensor, weights: torch.Tensor, basis: torch.Tensor) ->
         weights, basis = pad_columns(weights, basis)   # the wide path reads 16-byte rows
     return _TPSWarp.apply(image, weights, basis, kh, tile)
 
-
-tps_warp.launches = 0

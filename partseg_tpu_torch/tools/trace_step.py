@@ -24,8 +24,9 @@ records no bytes per kernel, so there is no GB/s column; it counts FLOPs
 for the host ops that launch convolutions and matrix products, and for
 those the host-op table gives TF/s (their FLOPs over the device time of
 the kernels they launched). With --cpu there are no CUDA kernels: the
-CPU ops' self times take their place. The last line is the breakdown as
-JSON.
+CPU ops' self times take their place. The program's spans are on in the
+window (``tracing``); the span table follows: name, calls, device ms per
+call. The last line is the breakdown as JSON.
 
 ``chip_smoke.py``'s phase ``profile`` aggregates its windows with
 ``summarize`` and the same categories.
@@ -40,6 +41,8 @@ import tempfile
 import time
 
 import torch
+
+from partseg_tpu_torch import tracing
 
 CATEGORIES = (   # (category, lower-case kernel-name substrings), first match wins
     ("softmax_moments", ("softmax_moments_kernel",)),
@@ -71,10 +74,18 @@ def category(name: str) -> str:
     return next((c for c, keys in CATEGORIES if any(k in low for k in keys)), "other")
 
 
+def on_device(e) -> bool:
+    """A kernel, memset or copy on the card; not an annotation (a span of
+    ``tracing`` or NCCL's range), which the profiler lists on the card's
+    timeline over the kernels it covers."""
+    return (e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False))
+
+
 def device_us(prof) -> float:
     """The self time of every CUDA kernel, memset and copy in a window, µs."""
     return sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA)
+               if on_device(e))
 
 
 def profile_window(fn, calls: int, cuda: bool, with_flops: bool = False, windows: int = 3):
@@ -108,7 +119,7 @@ def summarize(prof, wall_ms: float, cuda: bool, top_kernels: int = 10,
     events = prof.key_averages()
     host = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU]
     if cuda:
-        kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+        kernels = [e for e in events if on_device(e)]
         own = {id(e): getattr(e, "self_device_time_total", 0.0) for e in kernels}
     else:
         kernels = host
@@ -172,6 +183,23 @@ def print_trace_breakdown(prof, wall_ms: float, n_steps: float, cuda: bool) -> d
     }
 
 
+def print_spans() -> dict:
+    """Print the registry's spans (``tracing``: name, calls, device ms per
+    call; on the CPU no device time) and return them. Spans run only under
+    the profiler, so in a process that profiled nothing before they are the
+    window's."""
+    spans = tracing.snapshot()["spans"]
+    print("== spans (device ms per call) ==")
+    for name, s in sorted(spans.items()):
+        ms = s["device_ms"]
+        per = "no device" if ms is None else f"{ms / s['calls']:9.3f} ms"
+        print(f"{per:>12} {s['calls']:7d} calls  {name}")
+    return {name: {"calls": s["calls"],
+                   "device_ms_per_call": None if s["device_ms"] is None
+                   else s["device_ms"] / s["calls"]}
+            for name, s in spans.items()}
+
+
 def trace_config():
     """The traced config and batch, from TRACE_BATCH, TRACE_CONFIG, TRACE_SET."""
     from partseg_tpu_torch.models.partnet import PartNetConfig
@@ -212,8 +240,10 @@ def main(device=None) -> dict:
     trace = os.path.join(TRACE_DIR, "trace.json")
     prof.export_chrome_trace(trace)
     out = print_trace_breakdown(prof, wall_ms, n_disp * wp, cuda)
+    spans = print_spans()
     result = {"metric": "train_step_trace", "config": os.environ.get("TRACE_CONFIG", "flagship128"),
-              "batch": batch, "sub_steps": n_disp * wp, "device": str(dev), "trace": trace, **out}
+              "batch": batch, "sub_steps": n_disp * wp, "device": str(dev), "trace": trace,
+              **out, "spans": spans}
     print(json.dumps(result))
     return result
 

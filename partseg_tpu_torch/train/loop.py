@@ -4,9 +4,12 @@ Orchestration only; the math lives in the step (``train/step.py``). It
 restores the latest checkpoint on start and seeks the data stream to it,
 runs the ``augment.warp_every`` period (and ``data_echo``, ``scan_groups``)
 schedule, keys every sample's draws by its global id (``aug_id``), logs
-metrics with the throughput, writes checkpoints at group boundaries, can
-trace a window of steps with ``torch.profiler``, and can kill itself at a
-given step to test resume.
+metrics with the throughput and the hand kernels' launches per step
+(``kernel.<name>.launches_per_step``, from the ``tracing`` counters), writes
+checkpoints at group boundaries, can trace a window of steps with
+``torch.profiler`` (``profile_steps``; the program's spans are on in it,
+among them ``loop.fetch``, the loader's wait and the copy of each group of
+batches), and can kill itself at a given step to test resume.
 
 Several processes (``torchrun``, or the CLI's ``--coordinator``) train
 one model on a (data, space) mesh (``dist/mesh.py``), one rank per
@@ -30,6 +33,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from partseg_tpu_torch import tracing
 from partseg_tpu_torch.data import build_dataset, make_loader, prefetch
 from partseg_tpu_torch.device import default_device
 from partseg_tpu_torch.dist.mesh import Mesh, broadcast_parameters, make_spatial_mesh
@@ -244,6 +248,7 @@ def train(cfg: TrainConfig, *, data_iter: Iterator[dict] | None = None, restore:
     profiler = None
     t_last = time.perf_counter()
     imgs_since = 0
+    launches_at = tracing.counters("kernel.")
     echoed = None
     with anomaly:
         for step in range(start_step, cfg.steps, stride):
@@ -252,8 +257,9 @@ def train(cfg: TrainConfig, *, data_iter: Iterator[dict] | None = None, restore:
             if cfg.scan_groups > 1:
                 # One dispatch = scan_groups fetch groups, fetched group-major:
                 # the same batches and aug_ids as that many dispatches.
-                groups = [tuple(to_device(fetch(step + g * group, j)) for j in range(period))
-                          for g in range(cfg.scan_groups)]
+                with tracing.span("loop.fetch"):
+                    groups = [tuple(to_device(fetch(step + g * group, j)) for j in range(period))
+                              for g in range(cfg.scan_groups)]
                 viz = groups[0][0]
                 state, metrics = step_fn(state, groups, seed)
             else:
@@ -261,7 +267,8 @@ def train(cfg: TrainConfig, *, data_iter: Iterator[dict] | None = None, restore:
                 # dispatches, the same device batches in between (their
                 # draws still differ: they are keyed by the step).
                 if step % group == 0 or echoed is None:
-                    echoed = tuple(to_device(fetch(step, j)) for j in range(period))
+                    with tracing.span("loop.fetch"):
+                        echoed = tuple(to_device(fetch(step, j)) for j in range(period))
                 viz = echoed[0]
                 state, metrics = step_fn(state, echoed, seed)
             imgs_since += cfg.global_batch * stride
@@ -279,6 +286,11 @@ def train(cfg: TrainConfig, *, data_iter: Iterator[dict] | None = None, restore:
                 now = time.perf_counter()
                 dt = now - t_last
                 m["img_per_sec_per_chip"] = imgs_since / dt / mesh.world if dt > 0 else 0.0
+                launched = tracing.counters("kernel.")
+                steps_since = imgs_since // cfg.global_batch
+                for k, v in launched.items():
+                    m[f"{k}_per_step"] = (v - launches_at.get(k, 0)) / steps_since
+                launches_at = launched
                 m["lr_step"] = step
                 m["vgg_mode"] = perceptual.vgg_mode
                 if lead:

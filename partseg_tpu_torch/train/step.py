@@ -8,6 +8,10 @@ runs it eagerly; the state is updated in place.
 Each sample's draws are keyed by (seed, step, aug_id), as the JAX
 package folds ``aug_id`` into the step's key (``augment/keys.py``), unless
 the caller passes them (the parity tests pass the JAX package's).
+
+The step and its parts run in the spans ``train.step``, ``train.augment``,
+``train.model``, ``train.perceptual``, ``train.equivariance``,
+``train.swap``, ``train.backward`` and ``train.optimizer`` (``tracing``).
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from partseg_tpu_torch.losses.vgg import VGG19Features, load_vgg19
 from partseg_tpu_torch.models.partnet import PartNet
 from partseg_tpu_torch.partops.moments import precision_from_cov
 from partseg_tpu_torch.partops.render import render_gaussians
+from partseg_tpu_torch.tracing import span
 from partseg_tpu_torch.train.config import TrainConfig
 from partseg_tpu_torch.train.state import TrainState, make_optimizer, trainable
 
@@ -55,27 +60,31 @@ def make_loss_fn(cfg: TrainConfig, model: PartNet, sampler: TPSSampler,
         # Augmentation is input data: no gradient, in the model dtype (the
         # encoders cast their inputs anyway). The f32 images stay the
         # reconstruction target.
-        with torch.no_grad():
+        with torch.no_grad(), span("train.augment"):
             pair = make_pair(images.to(cfg.model.dtype), draws.tps, draws.color, sampler,
                              cfg.augment, warp_on=warp_on, tps2=draws.tps2)
-        out = model(pair["x_s"], pair["x_a"])
-        l_rec = perceptual(out.recon, images)
-        l_eq, eq_metrics = equivariance_loss(
-            sampler, pair["tps"], out.mu_s, out.sigma_s, out.mu_a, out.sigma_a,
-            sigma_weight=lw.equiv_sigma_weight)
-        loss = lw.rec_weight * l_rec + lw.equiv_weight * l_eq
-        metrics = {"rec": l_rec, "equiv": l_eq, **eq_metrics}
-        if lw.seg_weight and cfg.model.background:
-            l_seg = _seg_consistency(out)
-            loss = loss + lw.seg_weight * l_seg
-            metrics["seg"] = l_seg
+        with span("train.model"):
+            out = model(pair["x_s"], pair["x_a"])
+        with span("train.perceptual"):
+            l_rec = perceptual(out.recon, images)
+        with span("train.equivariance"):
+            l_eq, eq_metrics = equivariance_loss(
+                sampler, pair["tps"], out.mu_s, out.sigma_s, out.mu_a, out.sigma_a,
+                sigma_weight=lw.equiv_sigma_weight)
+            loss = lw.rec_weight * l_rec + lw.equiv_weight * l_eq
+            metrics = {"rec": l_rec, "equiv": l_eq, **eq_metrics}
+            if lw.seg_weight and cfg.model.background:
+                l_seg = _seg_consistency(out)
+                loss = loss + lw.seg_weight * l_seg
+                metrics["seg"] = l_seg
         if lw.swap_weight:
             # Appearance-swap consistency: shape must survive appearance
             # transfer (in-batch roll of the appearance vectors).
-            recon_sw = model.decode(out.mu_a, out.sigma_a, torch.roll(out.appearance, 1, 0))
-            _, mu_sw, _ = model.shape_stats(model.encode_shape(recon_sw))
-            l_swap = torch.mean(torch.sum((mu_sw - out.mu_a.float()) ** 2, dim=-1))
-            loss = loss + lw.swap_weight * l_swap
+            with span("train.swap"):
+                recon_sw = model.decode(out.mu_a, out.sigma_a, torch.roll(out.appearance, 1, 0))
+                _, mu_sw, _ = model.shape_stats(model.encode_shape(recon_sw))
+                l_swap = torch.mean(torch.sum((mu_sw - out.mu_a.float()) ** 2, dim=-1))
+                loss = loss + lw.swap_weight * l_swap
             metrics["swap"] = l_swap
         metrics["loss"] = loss
         return loss, metrics
@@ -104,26 +113,30 @@ def make_train_step(cfg: TrainConfig, model: PartNet, sampler: TPSSampler,
 
     def train_step(state: TrainState, batch: dict, seed: int = 0,
                    draws: PairDraws | None = None):
-        images = batch["image"]
-        if draws is None:
-            aug_id = batch.get("aug_id")
-            if aug_id is None:
-                aug_id = np.arange(images.shape[0])
-            draws = keyed_pair_draws(seed, state.step, aug_id, sampler, cfg.augment,
-                                     images.device)
-        loss, metrics = loss_fn(batch, draws)
-        params = list(trainable(state.model).values())
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        if group is not None and group_size(group) > 1:
-            names = list(metrics)
-            reduced = average(grads + [metrics[k] for k in names], group)
-            grads = reduced[:len(grads)]
-            metrics = dict(zip(names, reduced[len(grads):]))
-        metrics["grad_norm"] = optimizer.update(state.model, grads, state.opt_state)
-        state.step += 1
-        return state, metrics
+        with span("train.step"):
+            images = batch["image"]
+            if draws is None:
+                aug_id = batch.get("aug_id")
+                if aug_id is None:
+                    aug_id = np.arange(images.shape[0])
+                with span("train.augment"):
+                    draws = keyed_pair_draws(seed, state.step, aug_id, sampler, cfg.augment,
+                                             images.device)
+            loss, metrics = loss_fn(batch, draws)
+            params = list(trainable(state.model).values())
+            with span("train.backward"):
+                grads = torch.autograd.grad(loss, params, allow_unused=True)
+                grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            if group is not None and group_size(group) > 1:
+                names = list(metrics)
+                reduced = average(grads + [metrics[k] for k in names], group)
+                grads = reduced[:len(grads)]
+                metrics = dict(zip(names, reduced[len(grads):]))
+            with span("train.optimizer"):
+                metrics["grad_norm"] = optimizer.update(state.model, grads, state.opt_state)
+            state.step += 1
+            return state, metrics
 
     return train_step
 

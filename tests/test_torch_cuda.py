@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+from partseg_tpu_torch import tracing
 from partseg_tpu_torch.augment import TPSParams, TPSSampler
 from partseg_tpu_torch.evals import export_infer, load_exported, make_infer_fn, transfer_batch
 from partseg_tpu_torch.models.partnet import PartNet, PartNetConfig, init_weights
@@ -71,6 +72,13 @@ from partseg_tpu_torch.augment import AugmentConfig, keyed_pair_draws
 
 pytestmark = pytest.mark.cuda
 
+BACKWARD = "kernel.render_assemble.backward_launches"
+
+
+def launches(kernel: str) -> int:
+    """The registry's count of ``kernel``'s forward launches (``tracing``)."""
+    return tracing.counter(f"kernel.{kernel}.launches")
+
 
 @pytest.fixture
 def cuda():
@@ -91,11 +99,11 @@ def _logits(seed, b, size, k, delta=False):
 @pytest.mark.parametrize("delta", [False, True])
 def test_softmax_moments_kernel_matches_plain(cuda, delta):
     fg = _logits(6, 4, 64, 10, delta).to(cuda)[..., :10]
-    before = softmax_moments.launches
+    before = launches("softmax_moments")
     got = softmax_moments(fg)
     want = softmax_moments_plain(fg)
     torch.cuda.synchronize()
-    assert softmax_moments.launches == before + 1
+    assert launches("softmax_moments") == before + 1
     torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-30)
     torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-5)
     torch.testing.assert_close(got[2], want[2], rtol=0, atol=1e-5)
@@ -135,11 +143,11 @@ def test_render_assemble_kernel_matches_plain(cuda, kernel, dtype, res, c):
     lam = precision_from_cov(sigma)
     app = torch.randn((3, 10, c), generator=torch.Generator().manual_seed(1))
     mu, lam, app = mu.to(cuda), lam.to(cuda), app.to(cuda, dtype)
-    before = render_assemble.launches
+    before = launches("render_assemble")
     got = render_assemble(mu, lam, app, res, res, kernel)
     want = render_assemble_plain(mu, lam, app, res, res, kernel)
     torch.cuda.synchronize()
-    assert render_assemble.launches == before + 1
+    assert launches("render_assemble") == before + 1
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * want.abs().max().item())
 
@@ -170,12 +178,12 @@ def test_render_assemble_kernel_sixteen_part_tile(cuda, k, res, c, dtype):
     lam = precision_from_cov(sigma)
     app = torch.randn((4, k, c), generator=torch.Generator().manual_seed(res + k))
     mu, lam, app = mu.to(cuda).contiguous(), lam.to(cuda).contiguous(), app.to(cuda, dtype)
-    before = render_assemble.launches
+    before = launches("render_assemble")
     got = render_assemble(mu, lam, app, res, res)
     again = render_assemble(mu, lam, app, res, res)
     want = render_assemble_plain(mu, lam, app, res, res)
     torch.cuda.synchronize()
-    assert render_assemble.launches == before + 2 and torch.equal(got, again)
+    assert launches("render_assemble") == before + 2 and torch.equal(got, again)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * want.abs().max().item())
 
 
@@ -202,11 +210,11 @@ def test_render_assemble_backward_kernel_matches_closed_form(cuda, kernel, dtype
     mu, lam, app = _backward_inputs(cuda, k=k, c=c, indefinite=indefinite)
     app = app.to(dtype)
     g = torch.randn((3, res, res, c), generator=torch.Generator().manual_seed(12)).to(cuda)
-    before = render_assemble.backward_launches
+    before = tracing.counter(BACKWARD)
     got = render_assemble_backward(mu, lam, app, res, res, kernel, g)
     want = render_assemble_vjp(mu, lam, app, res, res, kernel, g)
     torch.cuda.synchronize()
-    assert render_assemble.backward_launches == before + 1
+    assert tracing.counter(BACKWARD) == before + 1
     assert [v.dtype for v in got] == [torch.float32, torch.float32, dtype]
     for name, a, b in zip(("d_mu", "d_lam", "d_app"), got, want):
         scale = b.float().abs().max().item()
@@ -269,13 +277,13 @@ def test_bilinear_sample_kernel_odd_shapes(cuda, dtype, c):
     crd[0, 5, 0] = crd[1, 700, 1] = crd[1, 1036, 0] = float("nan")
     crd = crd.to(cuda)
     finite = torch.nan_to_num(crd, nan=-3.0)
-    before = bilinear_sample_fused.launches
+    before = launches("bilinear_sample")
     got = bilinear_sample_fused(img, crd)
     want = bilinear_sample_plain(img.float(), finite).to(dtype)
     grads = sample_with_grads(img, crd)
     plain = bilinear_sample_plain(img, finite, with_grads=True)
     torch.cuda.synchronize()
-    assert bilinear_sample_fused.launches == before + 2 and got.dtype == dtype
+    assert launches("bilinear_sample") == before + 2 and got.dtype == dtype
     tol = 1e-6 if dtype == torch.float32 else 2 ** -8 + 1e-6
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
     for a, b in zip(grads, plain):
@@ -307,10 +315,10 @@ def test_partnet_on_card_matches_cpu(cuda):
     xa = torch.from_numpy(rng.uniform(0, 1, (2, 32, 32, 3)).astype(np.float32))
     want = make_infer_fn(cpu)(xs)
     want["recon"] = transfer_batch(cpu, xs, xa)
-    sm, ra = softmax_moments.launches, render_assemble.launches
+    sm, ra = launches("softmax_moments"), launches("render_assemble")
     got = make_infer_fn(gpu)(xs.to(cuda))
     got["recon"] = transfer_batch(gpu, xs.to(cuda), xa.to(cuda))
-    assert (softmax_moments.launches - sm, render_assemble.launches - ra) == (3, 2)
+    assert (launches("softmax_moments") - sm, launches("render_assemble") - ra) == (3, 2)
     for key in ("logits", "heatmaps", "landmarks", "sigma", "recon"):
         scale = want[key].abs().max().item()
         torch.testing.assert_close(got[key].cpu(), want[key], rtol=0, atol=1e-4 * scale,
@@ -371,11 +379,11 @@ def test_tps_warp_kernel_matches_plain(cuda, monkeypatch, band, dtype):
     img, weights, basis = _warp_inputs(cuda)
     kh, tile = band_config(dtype, 40, 48)
     assert kh == band
-    before = tps_warp.launches
+    before = launches("tps_warp")
     got = tps_warp(img.to(dtype), weights, basis)
     want = tps_warp_plain(img.to(dtype).float(), weights, basis, kh, tile).to(dtype)
     torch.cuda.synchronize()
-    assert tps_warp.launches == before + 1 and got.dtype == dtype
+    assert launches("tps_warp") == before + 1 and got.dtype == dtype
     tol = 1e-4 if dtype == torch.float32 else 2 ** -8 + 1e-4   # one bf16 ulp below 1
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
 
@@ -453,7 +461,7 @@ def test_tps_warp_kernel_shapes(cuda, monkeypatch, case, dtype):
     assert im.is_contiguous() and (im.data_ptr() % 16 != 0) == odd
     kh, tile = band_config(dtype, h, w)
     assert kh == band
-    before = tps_warp.launches
+    before = launches("tps_warp")
     got = tps_warp(im, weights, basis)
     again = tps_warp(im, weights, basis)
     if nan:
@@ -465,7 +473,7 @@ def test_tps_warp_kernel_shapes(cuda, monkeypatch, case, dtype):
     else:
         want = tps_warp_plain(im.float(), weights, basis, kh, tile).to(dtype)
     torch.cuda.synchronize()
-    assert tps_warp.launches == before + 2 and got.dtype == dtype
+    assert launches("tps_warp") == before + 2 and got.dtype == dtype
     assert torch.equal(got, again)
     tol = 1e-4 if dtype == torch.float32 else 2 ** -8 + 1e-4   # one bf16 ulp below 1
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
@@ -483,13 +491,13 @@ def test_tps_sampler_warp_hands_the_wide_path_16_byte_rows(cuda, monkeypatch, ba
                                     False)
     sampler = TPSSampler(grid_size=20)
     kh, tile = band_config(img.dtype, 128, 128)
-    before = tps_warp.launches
+    before = launches("tps_warp")
     got = sampler.warp(TPSParams(weights), img)
     again = tps_warp(img, weights, basis)
     flow, _ = kernel_order_flow(weights, basis)
     want = tps_sample_plain(img.float(), flow, kh, tile).to(img.dtype)
     torch.cuda.synchronize()
-    assert tps_warp.launches == before + 2 and kh == band
+    assert launches("tps_warp") == before + 2 and kh == band
     assert torch.equal(got, again)
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=2 ** -8 + 1e-4)
 
@@ -553,11 +561,11 @@ def test_tps_warp_in_image_large_flow_accuracy(cuda, monkeypatch, grid):
 def test_bilinear_sample_kernel_matches_plain(cuda, mode):
     img = torch.rand((2, 20, 30, 3), generator=torch.Generator().manual_seed(4)).to(cuda)
     crd = (torch.rand((2, 700, 2), generator=torch.Generator().manual_seed(5)) * 2.6 - 1.3).to(cuda)
-    before = bilinear_sample_fused.launches
+    before = launches("bilinear_sample")
     got = bilinear_sample(img, crd, mode, impl="fused")
     want = bilinear_sample(img, crd, mode, impl="gather")
     torch.cuda.synchronize()
-    assert bilinear_sample_fused.launches == before + 1
+    assert launches("bilinear_sample") == before + 1
     torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
     got, want = _grad_pair(lambda i, c: bilinear_sample(i, c, mode, impl="fused"),
                            lambda i, c: bilinear_sample(i, c, mode, impl="gather"), [img, crd])
@@ -605,10 +613,10 @@ def test_softmax_moments_op_launches_the_kernel(cuda):
     """The registered op, called directly on the strided foreground slice,
     launches the kernel and matches the plain version."""
     fg = _logits(9, 3, 32, 10).to(cuda)[..., :10]
-    before = softmax_moments.launches
+    before = launches("softmax_moments")
     got = torch.ops.partseg.softmax_moments(fg)
     torch.cuda.synchronize()
-    assert softmax_moments.launches == before + 1
+    assert launches("softmax_moments") == before + 1
     want = softmax_moments_plain(fg)
     torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-30)
     torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-5)
@@ -635,10 +643,10 @@ def test_exported_infer_on_the_card_runs_the_kernel(cuda, tmp_path):
     for b in (1, 3):
         x = torch.from_numpy(np.random.default_rng(b).uniform(0, 1, (b, 32, 32, 3))
                              .astype(np.float32))
-        before = softmax_moments.launches
+        before = launches("softmax_moments")
         got = served(x.to(cuda))
         torch.cuda.synchronize()
-        assert softmax_moments.launches == before + 1
+        assert launches("softmax_moments") == before + 1
         eager, plain = make_infer_fn(gpu)(x.to(cuda)), make_infer_fn(cpu)(x)
         torch.testing.assert_close(got["seg"], eager["seg"])
         for key in ("logits", "heatmaps", "landmarks", "sigma"):

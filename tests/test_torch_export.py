@@ -82,6 +82,19 @@ def test_exported_graph_holds_the_kernel_op(symbolic):
     assert len(softmaxes) == 1 and softmaxes[0].args[1] in (-1, 3)
 
 
+def test_exported_program_holds_no_span(model, symbolic):
+    """The infer path's spans (``serve.infer`` is the eager callable's; the
+    forward runs ``partnet.shape_encoder``) read the profiler's flag, which
+    is off while exporting: no profiler node enters the graph, and the
+    program still equals the eager forward."""
+    names = [str(node.target) for node in symbolic.graph.nodes if node.op == "call_function"]
+    assert not any("profiler" in name or "record_function" in name for name in names)
+    x = _rand(3)
+    got, want = symbolic.module()(x), make_infer_fn(model)(x)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
 def test_exported_program_matches_jax():
     jm, jp = jax_partnet(use_pallas=False)
     tm = torch_partnet(jp)

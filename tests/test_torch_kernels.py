@@ -26,6 +26,7 @@ import torch
 import partseg_tpu.partops as jp
 from partseg_tpu.partops.pallas import render_assemble as jax_render_assemble
 from partseg_tpu.partops.pallas import softmax_moments as jax_softmax_moments
+from partseg_tpu_torch import tracing
 from partseg_tpu_torch.partops import precision_from_cov
 from partseg_tpu_torch.partops.kernels import (
     _build,
@@ -51,6 +52,13 @@ from partseg_tpu_torch.partops.kernels.render_assemble import (
 from _torch_parity import n, t
 
 torch.set_num_threads(1)
+
+BACKWARD = "kernel.render_assemble.backward_launches"
+
+
+def launches(kernel: str) -> int:
+    """The registry's count of ``kernel``'s forward launches (``tracing``)."""
+    return tracing.counter(f"kernel.{kernel}.launches")
 
 
 def _logits(seed, b=2, h=16, w=16, k=4, delta=False):
@@ -135,9 +143,9 @@ def test_render_assemble_vjp_matches_jax(kernel, app_dtype, k, c):
     args = [t(mu).requires_grad_(), t(lam).requires_grad_(), t(app).to(app_dtype).requires_grad_()]
     out = render_assemble(*args, h, w, kernel)
     assert type(out.grad_fn).__name__ == "_RenderAssembleBackward"
-    before = render_assemble.backward_launches
+    before = tracing.counter(BACKWARD)
     got = torch.autograd.grad(out, args, t(g))
-    assert render_assemble.backward_launches == before      # the CPU branch: no kernel
+    assert tracing.counter(BACKWARD) == before      # the CPU branch: no kernel
     japp = jnp.asarray(app, jnp.bfloat16 if app_dtype == torch.bfloat16 else jnp.float32)
     _, vjp = jax.vjp(lambda m, l, a: jax_render_assemble(m, l, a, h, w, kernel), mu, lam, japp)
     d_mu, d_lam, d_app = vjp(jnp.asarray(g))
@@ -347,10 +355,10 @@ def test_kernel_modules_import_and_run_on_cpu_without_building():
     """Importing the wrappers and running them on CPU tensors needs no
     nvcc, no triton and no GPU: nothing is built or loaded."""
     mu, _, lam, app = (t(v) for v in _render_inputs(5))
-    before = (softmax_moments.launches, render_assemble.launches)
+    before = (launches("softmax_moments"), launches("render_assemble"))
     softmax_moments(t(_logits(5)))
     render_assemble(mu, lam, app, 8, 8)
-    assert (softmax_moments.launches, render_assemble.launches) == before
+    assert (launches("softmax_moments"), launches("render_assemble")) == before
     assert _build.library.cache_info().currsize == 0
     assert sorted(p.name for p in _build.CSRC_DIR.glob("*.cu")) == [
         "bilinear_sample.cu", "errors.cu", "render_assemble.cu", "softmax_moments.cu",

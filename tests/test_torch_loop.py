@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from partseg_tpu_torch import tracing
 from partseg_tpu_torch.augment import AugmentConfig
 from partseg_tpu_torch.data import SyntheticBlobs, make_loader
 from partseg_tpu_torch.models.partnet import PartNetConfig
@@ -392,11 +393,29 @@ def test_metric_logger_without_tensorboard_writes_jsonl_only(tmp_path):
     assert not (tmp_path / "tb").exists()
 
 
-def test_profile_window_and_debug_nans(tmp_path):
+def test_profile_window_and_debug_nans(tmp_path, monkeypatch):
     """profile_steps traces its window with torch.profiler into
-    <run dir>/profile; debug_nans trains under anomaly detection and
-    checks the loss."""
+    <run dir>/profile, with the program's spans in it; debug_nans trains
+    under anomaly detection and checks the loss. Each metrics line carries
+    the hand kernels' launches per step from the registry's counters (here
+    a counter the CPU's plain versions leave at 0, counted by a wrapped
+    step)."""
+    build = loop_mod.build_step_fn
+
+    def counting(*args, **kwargs):
+        step_fn = build(*args, **kwargs)
+
+        def step(*a):
+            tracing.count("kernel.render_assemble.launches", 3)
+            return step_fn(*a)
+
+        return step
+
+    monkeypatch.setattr(loop_mod, "build_step_fn", counting)
     cfg = TINY.replace(steps=4, profile_steps=(1, 2))
-    state, _ = run(cfg, tmp_path, "run", debug_nans=True)
+    state, logged = run(cfg, tmp_path, "run", debug_nans=True)
     assert state.step == 4
     assert [p.name for p in (tmp_path / "run" / "profile").iterdir()] == ["trace_0000002.json"]
+    trace = (tmp_path / "run" / "profile" / "trace_0000002.json").read_text()
+    assert all(f'"{name}"' in trace for name in ("loop.fetch", "train.step", "train.backward"))
+    assert [rec["kernel.render_assemble.launches_per_step"] for rec in logged.values()] == [3.0] * 4

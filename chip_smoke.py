@@ -17,6 +17,15 @@ Phases (one JSON line each; any failure exits non-zero):
                     torch.autograd.grad through its plain version, f32;
                     render_assemble's backward kernel also against its
                     closed form (render_assemble_vjp), f32 and bf16.
+     group_norm   — the GroupNorm kernels (partseg::group_norm: y and
+                    relu(y), and the backward under both cotangents) at
+                    [256, 128, 64, 64] and [256, 96, 128, 128] bf16: device
+                    ms beside the bytes' bound, the plain version (the
+                    F.group_norm round trip and relu, and autograd through
+                    it) and F.group_norm alone on the bf16 input
+                    (library_ms); then one B = 256 infer request's
+                    profiled device time against its CUDA-event time, and
+                    its 15 GroupNorm kernels in the profile.
   5. serving      — the CelebA model (full width, bf16, seeded random
                     weights, use_pallas=True) answers B = 256 inference and
                     transfer requests; the launch counters show the path
@@ -131,17 +140,19 @@ final status line.
 
 With --baseline DIR (DIR holds another checkout of the repo, such as a
 `git archive` of an earlier commit unpacked into a gitignored directory)
-it runs only device, build, kernels_warp, turns, tps_wide,
+it runs only device, build, kernels_warp, turns, group_norm, tps_wide,
 timing_wide_decodes and train_k16: both checkouts' csrc/ built into two
 libraries; tps_warp's output held bit for bit to the baseline's at the
 training warp and at every tps_warp case of the card tests (and to the
 plain version as above); each kernel's C entry point of both called on
 the same inputs, device time per call in the order baseline, this, this,
-baseline (render_assemble's forward, bit for bit the baseline's, and
+baseline (group_norm against the plain version, which is what a checkout
+without the kernel runs; render_assemble's forward, bit for bit the baseline's, and
 backward also at the wide decodes' scales, with sweeps of this checkout's
 tiles; the backward bit for bit the baseline's at K <= 12 and C <= 128);
 the wide tps_warp bases, the wide decodes' forward and the K = 16 period
-under both libraries in turns (the wrappers' launch rules in Python are
+under both libraries in turns (a kernel the baseline lacks, such as
+group_norm before it existed, runs this checkout's; the wrappers' launch rules in Python are
 this checkout's, so the baseline is the parent commit).
 
 Imports nothing of JAX: it needs only this checkout, PyTorch and nvcc.
@@ -204,6 +215,7 @@ from partseg_tpu_torch.partops.kernels import (
     _build,
     bilinear_sample_fused,
     bilinear_sample_plain,
+    group_norm_plain,
     render_assemble,
     render_assemble_backward,
     render_assemble_plain,
@@ -214,6 +226,7 @@ from partseg_tpu_torch.partops.kernels import (
     tps_warp_plain,
 )
 from partseg_tpu_torch.partops.kernels.bilinear_sample import sample_with_grads
+from partseg_tpu_torch.partops.kernels.group_norm import group_norm_backward, group_norm_vjp
 from partseg_tpu_torch.partops.kernels.render_assemble import (
     CHUNK_CHANNELS,
     NARROW_PARTS,
@@ -596,9 +609,13 @@ def _with_band(kh: int, var: str = "PARTSEG_WARP_BAND"):
 
 def _tps_launch(lib, im, weights, basis, band, tile) -> torch.Tensor:
     """One call of a library's tps_warp entry point (this checkout's or a
-    baseline's) on the same inputs."""
+    baseline's) on the same inputs, a wide basis padded to 16-byte rows as
+    the wrapper pads it (the wide path refuses other rows)."""
     out = torch.empty_like(im)
     b, h, w, c = im.shape
+    m = weights.shape[1]
+    if launch_plan(b, h, w, m, band, tile).chunk < m and (m % 4 or basis.data_ptr() % 16):
+        weights, basis = pad_columns(weights, basis)
     _build.launch("partseg_tps_warp", im.device, im.data_ptr(), int(im.dtype == torch.bfloat16),
                   weights.data_ptr(), basis.data_ptr(), out.data_ptr(), b, h, w, c,
                   weights.shape[1], tile, band, lib=lib)
@@ -818,6 +835,116 @@ def phase_backward(cfg) -> dict:
     return report
 
 
+GN_SHAPES = ((256, 128, 64, 64), (256, 96, 128, 128))   # an encoder's widest map, the decoder's
+GN_EPS = 1e-6
+
+
+def group_norm_bound(b, c, h, w, tensors) -> float:
+    """ms to move ``tensors`` bf16 tensors of [b, c, h, w] once at HBM speed:
+    the forward reads x and writes y and r (3), the backward reads x and
+    both cotangents and writes dx (4)."""
+    return tensors * b * c * h * w * 2 / HBM_BYTES_PER_S * 1e3
+
+
+def phase_group_norm(smi: str, served=None, baseline: bool = False) -> dict:
+    """The GroupNorm kernels at an encoder's and the decoder's widest bf16
+    maps at B = 256: device ms of the forward (y and relu(y); relu(y) alone)
+    and the backward (both cotangents: the kernel and dγ, dβ's sum), beside
+    the bytes' bound, the plain version's (the chain the blocks ran before
+    the kernel: f32 copy, F.group_norm, the cast back and relu; and
+    autograd through it) and F.group_norm alone on the bf16 input
+    (library_ms). With ``baseline`` the plain version and the kernel run in
+    turns (plain, kernel, kernel, plain), since a checkout without the
+    kernel runs the plain version. Then one infer request (``served``'s
+    model, else the celeba one at B = 256): its device time from
+    torch.profiler, which must hold its 15 GroupNorm launches, against its
+    CUDA-event time."""
+    rows = []
+    for b, c, h, w in GN_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(SEED + c)
+        x = (1.5 * torch.randn((b, c, h, w), generator=gen, device="cuda") + 0.7).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        weight = 0.5 * torch.randn(c, generator=gen, device="cuda") + 1.0
+        bias = 0.5 * torch.randn(c, generator=gen, device="cuda")
+        g_y, g_r = (torch.randn(x.shape, generator=gen, device="cuda").to(x.dtype)
+                    .contiguous(memory_format=torch.channels_last) for _ in range(2))
+        op = torch.ops.partseg.group_norm
+        _, _, mean, rstd = op(x, weight, bias, 8, GN_EPS, True, True)
+        xs = x.detach().requires_grad_()
+
+        def forward():
+            return op(x, weight, bias, 8, GN_EPS, True, True)
+
+        def plain_forward():
+            return group_norm_plain(x, weight, bias, 8, GN_EPS)
+
+        def backward():
+            return group_norm_backward(x, weight, bias, mean, rstd, g_y, g_r)
+
+        def plain_backward():
+            y, r = group_norm_plain(xs, weight, bias, 8, GN_EPS)
+            return torch.autograd.grad([y, r], [xs], [g_y, g_r])
+
+        y, r, _, _ = forward()
+        want_y, want_r = plain_forward()
+        dx = backward()[0]
+        to_y = (g_y.float() + torch.where(r > 0, g_r.float(), 0.0)).to(x.dtype)
+        want_dx = group_norm_vjp(x, weight, bias, 8, GN_EPS, to_y, None)[0]
+        errs = {name: _scaled_err(a.float(), v.float()) for name, a, v in
+                (("y", y, want_y), ("r", r, want_r), ("dx", dx, want_dx))}
+        check(max(errs.values()) <= 2 ** -7, f"group_norm at {[b, c, h, w]}: errors {errs}")
+        row = {"shape": [b, c, h, w], "dtype": "bf16", "scaled_max_abs_err": errs,
+               "bound_ms": group_norm_bound(b, c, h, w, 3),
+               "relu_only_bound_ms": group_norm_bound(b, c, h, w, 2),
+               "backward_bound_ms": group_norm_bound(b, c, h, w, 4),
+               "device_ms": device_ms(forward),
+               "relu_only_device_ms": device_ms(lambda: op(x, weight, bias, 8, GN_EPS, False,
+                                                           True)),
+               "backward_device_ms": device_ms(backward),
+               "ms": event_ms(forward, inner=KERNEL_INNER),
+               "backward_ms": event_ms(backward, inner=KERNEL_INNER),
+               "plain_device_ms": device_ms(plain_forward),
+               "plain_backward_device_ms": device_ms(plain_backward),
+               "library_ms": device_ms(lambda: F.group_norm(x, 8, weight.to(x.dtype),
+                                                            bias.to(x.dtype), GN_EPS))}
+        if baseline:
+            row["turns_forward_device_ms"] = dict(zip(("plain", "kernel"),
+                                                      turns_ms(plain_forward, forward)))
+            row["turns_backward_device_ms"] = dict(zip(("plain", "kernel"),
+                                                       turns_ms(plain_backward, backward)))
+        row["device_over_bound"] = row["device_ms"] / row["bound_ms"]
+        row["backward_over_bound"] = row["backward_device_ms"] / row["backward_bound_ms"]
+        rows.append(row)
+        del x, g_y, g_r, xs, y, r, dx, want_y, want_r, want_dx, to_y
+
+    if served is None:
+        cfg = model_config("celeba", use_pallas=True)
+        model = init_weights(PartNet(cfg), seed=SEED).eval()
+        x_s = torch.rand((BATCH, cfg.img_size, cfg.img_size, 3),
+                         generator=torch.Generator(device="cuda").manual_seed(SEED + 1),
+                         device="cuda")
+    else:
+        model, x_s = served["model"], served["x_s"]
+    infer = make_infer_fn(model)
+    request_ms = event_ms(lambda: infer(x_s), runs=10)
+    prof, _ = trace_step.profile_window(lambda: infer(x_s), 1, cuda=True)
+    kernels = [e for e in prof.key_averages() if trace_step.on_device(e)]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    norm = [e for e in kernels if "group_norm" in e.key]
+    norm_calls = sum(e.count for e in norm)
+    check(norm_calls == 15, f"the profiled infer request shows {norm_calls} GroupNorm kernels, "
+                            "expected 15")
+    check(0.9 * request_ms <= busy_ms <= 1.02 * request_ms,
+          f"the profiled infer request's device time {busy_ms} ms against {request_ms} ms "
+          "by CUDA events")
+    emit("group_norm", rows=rows, infer_request={
+        "batch": BATCH, "event_ms": request_ms, "profiled_device_ms": busy_ms,
+        "group_norm_kernels": norm_calls,
+        "group_norm_device_ms": sum(e.self_device_time_total for e in norm) / 1e3},
+        nvidia_smi=smi)
+    return {"rows": rows}
+
+
 def serving_launches() -> dict:
     return {k: launch_counts()[k] for k in ("softmax_moments", "render_assemble")}
 
@@ -834,9 +961,11 @@ def phase_serving(cfg) -> dict:
     tracing.reset()
     out = infer(x_s)
     after_infer = serving_launches()
+    norms_infer = tracing.counter(GN_LAUNCHES)
     recon = transfer_batch(model, x_s, x_a)
     torch.cuda.synchronize()
     launches = serving_launches()
+    norms = tracing.counter(GN_LAUNCHES)
     spans = tracing.snapshot()["spans"]
     check(spans == {}, f"the serving path ran spans with no profiler on: {spans}")
 
@@ -859,8 +988,11 @@ def phase_serving(cfg) -> dict:
           f"infer launches {after_infer}, expected softmax_moments 1, render_assemble 0")
     check(launches == {"softmax_moments": 3, "render_assemble": 4},
           f"infer + transfer launches {launches}, expected softmax_moments 3, render_assemble 4")
+    check((norms_infer, norms) == (15, 15 + 53),
+          f"GroupNorm launches {norms_infer} (infer), {norms} (infer + transfer): expected 15, 68")
     emit("serving", batch=BATCH, dtype=str(cfg.dtype), launches_after_infer=after_infer,
-         launches=launches, seg_labels=sorted(torch.unique(seg).tolist()),
+         launches=launches, group_norm_launches=norms,
+         seg_labels=sorted(torch.unique(seg).tolist()),
          recon_mean=recon.float().mean().item())
     return {"model": model, "x_s": x_s, "x_a": x_a, "launches": launches}
 
@@ -897,6 +1029,8 @@ def phase_parity(cfg) -> None:
 
 
 BACKWARD_LAUNCHES = "kernel.render_assemble.backward_launches"
+GN_LAUNCHES = "kernel.group_norm.launches"
+GN_BACKWARD_LAUNCHES = "kernel.group_norm.backward_launches"
 TRAIN_LAUNCHES = {"tps_warp": 1, "softmax_moments": 4, "render_assemble": 6,
                   "bilinear_sample": 0, "render_assemble_backward": 6}
 
@@ -1155,6 +1289,10 @@ def phase_train_k16(smi: str, old=None) -> dict:
     check(all(math.isfinite(v) for v in values.values()), f"train_k16 metrics not finite: {values}")
     check(lr > 0 and moved > 0, f"train_k16 params did not move (lr {lr}, max |Δ| {moved})")
     check(launches == K16_LAUNCHES, f"train_k16 launches {launches}, expected {K16_LAUNCHES}")
+    norms = (tracing.counter(GN_LAUNCHES), tracing.counter(GN_BACKWARD_LAUNCHES))
+    steps = cfg.augment.warp_every
+    check(norms == (61 * steps, 61 * steps),
+          f"train_k16 GroupNorm launches {norms}, expected {61 * steps} forward and backward")
     torch.cuda.reset_peak_memory_stats()
     period_ms = event_ms(lambda: period(state, batches, cfg.seed), runs=5, warmup=1)
     period_device_ms = device_ms(lambda: period(state, batches, cfg.seed), calls=2, warmup=0)
@@ -1184,7 +1322,7 @@ def phase_train_k16(smi: str, old=None) -> dict:
     m = cfg.model
     emit("train_k16", config="deepfashion", batch=K16_BATCH, dtype=str(m.dtype),
          n_parts=m.n_parts, vgg_mode=perceptual.vgg_mode, lr=lr, metrics=values,
-         max_abs_param_change=moved, launches=launches,
+         max_abs_param_change=moved, launches=launches, group_norm_launches=norms,
          backward_plans=[backward_plan(m.n_parts, f, (m.decoder_out_size or m.img_size)
                                        // 2 ** (m.decoder_scales - 1 - i), K16_BATCH)
                          for i, f in enumerate(m.decoder_features[:m.decoder_scales])],
@@ -1454,13 +1592,25 @@ def _backward_rule(baseline: Path):
     return mod.backward_tile, getattr(mod, "backward_partial_rows", None)
 
 
+class _Preferring:
+    """A library's entry points, and another's where the first lacks one."""
+
+    def __init__(self, first, second):
+        self.first, self.second = first, second
+
+    def __getattr__(self, name):
+        return getattr(self.first if hasattr(self.first, name) else self.second, name)
+
+
 @contextlib.contextmanager
 def using_library(lib):
     """The wrappers launch ``lib``'s entry points (another checkout's
-    kernels, built from its csrc/) while this runs; their launch rules in
-    Python stay this checkout's."""
+    kernels, built from its csrc/) while this runs, and this checkout's for
+    a kernel ``lib`` lacks (one newer than that checkout); their launch
+    rules in Python stay this checkout's."""
     own = _build.library
-    _build.library = lambda csrc=_build.CSRC_DIR: lib
+    either = _Preferring(lib, own())
+    _build.library = lambda csrc=_build.CSRC_DIR: either
     try:
         yield
     finally:
@@ -1513,7 +1663,7 @@ def phase_tps_wide(smi: str, old=None) -> None:
         bound, by = bound_ms(*tps_warp_bound(32, 128, 128, 3, m, 2))
         pair = tps_library_pair(img, weights, basis)
         baseline = {}
-        if old is not None:   # each tree's main-path inputs: the basis as it was, and padded
+        if old is not None:   # both trees' main path: the basis padded to 16-byte rows
             was = _tps_launch(old, img, weights, basis, band, tile)
             outs = {id(lib): torch.empty_like(img) for lib in (old, _build.library())}
 
@@ -1522,7 +1672,7 @@ def phase_tps_wide(smi: str, old=None) -> None:
                     "partseg_tps_warp", img.device, img.data_ptr(), 1, w_.data_ptr(),
                     b_.data_ptr(), outs[id(lib)].data_ptr(), 32, 128, 128, 3, w_.shape[1], tile,
                     band, lib=lib)
-            old_ms, new_ms = turns_ms(call(old, weights, basis), call(_build.library(), kw, kb))
+            old_ms, new_ms = turns_ms(call(old, kw, kb), call(_build.library(), kw, kb))
             same = torch.equal(was, got)
             check(same, f"tps_warp M = {m}: differs from the baseline's kernel")
             baseline = {"baseline_device_ms": old_ms, "turns_device_ms": new_ms,
@@ -3117,6 +3267,7 @@ def main() -> int:
         old = _build.library(args.baseline / "partseg_tpu_torch" / "csrc")
         phase_warp_kernels(old)
         phase_turns(cfg, args.baseline, smi)
+        phase_group_norm(smi, baseline=True)
         phase_tps_wide(smi, old)
         phase_wide_decodes(smi, old)
         with recording("train_k16"):
@@ -3127,6 +3278,7 @@ def main() -> int:
     errs.update(phase_warp_kernels())
     phase_backward(cfg)
     served = phase_serving(cfg)
+    phase_group_norm(smi, served)
     phase_parity(cfg)
     trained = phase_train()
     zeros_launches = phase_train_zeros()

@@ -12,6 +12,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from partseg_tpu_torch.partops.kernels import group_norm
+
 NORMS = ("block", "group", "none")
 
 
@@ -46,14 +48,21 @@ class Linear(nn.Linear):
 
 class GroupNorm(nn.GroupNorm):
     """Flax ``nn.GroupNorm`` twin: eps 1e-6 (torch's default is 1e-5) and
-    statistics in f32 whatever the input dtype; the output keeps it."""
+    statistics in f32 whatever the input dtype; the output keeps it. Runs
+    the op ``partseg::group_norm`` (``partops/kernels/group_norm.py``): on
+    the card one kernel that reads the channels_last activation once and
+    writes the output, its ReLU, or both."""
 
     def __init__(self, num_groups: int, num_channels: int):
         super().__init__(num_groups, num_channels, eps=1e-6)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.group_norm(x.float(), self.num_groups, self.weight, self.bias, self.eps)
-        return y.to(x.dtype)
+        return self.with_relu(x, keep_y=True, relu=False)[0]
+
+    def with_relu(self, x: torch.Tensor, keep_y: bool = True, relu: bool = True):
+        """(GroupNorm(x) or None, relu(GroupNorm(x)) or None), as asked."""
+        return group_norm(x, self.weight, self.bias, self.num_groups, self.eps, y=keep_y,
+                          relu=relu)
 
 
 class ConvBlock(nn.Module):
@@ -70,7 +79,7 @@ class ConvBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.norm is not None:
-            x = self.norm(x)
+            return self.conv(self.norm.with_relu(x, keep_y=False)[1])
         return self.conv(F.relu(x))
 
 
@@ -129,10 +138,15 @@ class ResBlock(nn.Module):
         self.act_quant = act_quant
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        convs = list(self.convs)
         if self.norm is not None:
-            x = self.norm(x)
-        y = x
-        for conv in self.convs:
+            # One pass gives the residual branch's input and its ReLU, which
+            # the first ConvBlock (norm "none": relu → conv) would recompute.
+            x, y = self.norm.with_relu(x)
+            y = convs.pop(0).conv(y)
+        else:
+            y = x
+        for conv in convs:
             y = conv(y)
         if self.skip is not None:
             x = self.skip(x)

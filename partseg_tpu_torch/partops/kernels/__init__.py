@@ -3,14 +3,16 @@ wrapper validates its inputs, runs the plain PyTorch version on a CPU
 tensor, and launches its hand-written kernel (built from ``csrc/`` at
 first use) on a CUDA tensor, counting forward launches in the registry
 counter ``kernel.<name>.launches`` (``partseg_tpu_torch.tracing``; and
-render_assemble its backward kernel's in
-``kernel.render_assemble.backward_launches``). Each is an autograd
+render_assemble and group_norm their backward kernels' in
+``kernel.<name>.backward_launches``). Each is differentiable: a registered
+op with its autograd (softmax_moments, group_norm) or an autograd
 Function."""
 
 from partseg_tpu_torch.partops.kernels.bilinear_sample import (
     bilinear_sample_fused,
     bilinear_sample_plain,
 )
+from partseg_tpu_torch.partops.kernels.group_norm import group_norm, group_norm_plain
 from partseg_tpu_torch.partops.kernels.render_assemble import (
     render_assemble,
     render_assemble_backward,
@@ -34,4 +36,6 @@ __all__ = [
     "tps_warp_plain",
     "bilinear_sample_fused",
     "bilinear_sample_plain",
+    "group_norm",
+    "group_norm_plain",
 ]

@@ -36,9 +36,9 @@ COMPILE_FLAGS = (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-split-compile=0",
 )
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # Every C entry point: its argument types (pointers and the stream as
-# c_void_p, ints as c_int; see the comment above each in csrc/) and its
+# c_void_p, ints as c_int, floats as c_float; see the comment above each in csrc/) and its
 # return type. ctypes would pass an unannotated Python int as a 32-bit int
 # and cut a pointer.
 SIGNATURES = {
@@ -50,6 +50,8 @@ SIGNATURES = {
     "partseg_tps_warp": ([_P, _I, _P, _P, _P] + [_I] * 7 + [_P], _I),
     "partseg_tps_warp_plan": ([_I] * 6 + [_P], None),
     "partseg_bilinear_sample": ([_P, _I, _P, _P, _P, _P] + [_I] * 6 + [_P], _I),
+    "partseg_group_norm_fwd": ([_P] * 7 + [_I] * 6 + [_F] + [_I] * 4 + [_P], _I),
+    "partseg_group_norm_bwd": ([_P] * 9 + [_I] * 10 + [_P], _I),
 }
 
 

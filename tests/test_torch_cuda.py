@@ -18,7 +18,10 @@ atomics for the warps' image cotangents); the render_assemble backward
 kernel against its closed form 1e-5 of each cotangent's largest (the same
 f32 products summed over tiles in another order; a bf16 d_app may round
 to the neighbouring bf16 value: one ulp, at most 2⁻⁷ of it); whole-model outputs and
-training metrics 1e-4 of their scale (tens of f32 layers).
+training metrics 1e-4 of their scale (tens of f32 layers); GroupNorm's outputs
+against F.group_norm one bf16 ulp (2⁻⁷ of each element) or 1e-5 of their
+largest at f32, its gradients 1e-4 of each one's largest (see
+_check_group_norm).
 """
 
 import ctypes
@@ -35,6 +38,8 @@ from partseg_tpu_torch.models.partnet import PartNet, PartNetConfig, init_weight
 from partseg_tpu_torch.partops import bilinear_sample
 from partseg_tpu_torch.partops.kernels import (
     bilinear_sample_fused,
+    group_norm,
+    group_norm_plain,
     render_assemble,
     render_assemble_plain,
     softmax_moments,
@@ -51,6 +56,7 @@ from partseg_tpu_torch.partops.kernels.render_assemble import (
     render_assemble_vjp,
 )
 from partseg_tpu_torch.partops.kernels import _build
+from partseg_tpu_torch.partops.kernels.group_norm import group_norm_vjp
 from partseg_tpu_torch.partops.kernels.tps_warp import (
     band_config,
     kernel_order_flow,
@@ -69,6 +75,8 @@ from partseg_tpu_torch.train import (
     make_train_period,
 )
 from partseg_tpu_torch.augment import AugmentConfig, keyed_pair_draws
+from partseg_tpu_torch.bench import build_trainer
+from partseg_tpu_torch.configs import model_config, train_config
 
 pytestmark = pytest.mark.cuda
 
@@ -654,3 +662,130 @@ def test_exported_infer_on_the_card_runs_the_kernel(cuda, tmp_path):
             torch.testing.assert_close(got[key], eager[key], rtol=0, atol=1e-5 * scale, msg=key)
             torch.testing.assert_close(got[key].cpu(), plain[key], rtol=0, atol=1e-4 * scale,
                                        msg=key)
+
+
+# (C, H·W) of every GroupNorm call (8 groups) in the one-card PartNets of the
+# ten presets, celeba256_spatial unsharded; tests/test_torch_group_norm.py
+# holds this list to the presets' modules.
+PRESET_NORM_SHAPES = [
+    (24, 1024), (32, 1024), (32, 16384), (32, 65536), (48, 16), (48, 64), (48, 256),
+    (48, 1024), (64, 16), (64, 64), (64, 256), (64, 1024), (64, 4096), (64, 16384),
+    (72, 1024), (96, 64), (96, 16384), (96, 65536), (128, 16), (128, 64), (128, 256),
+    (128, 1024), (128, 4096), (128, 16384), (144, 256), (192, 4096), (192, 16384),
+    (256, 256), (256, 1024), (384, 1024), (384, 4096),
+]
+GN_EPS = 1e-6
+
+
+def _norm_case(cuda, b, c, hw, dtype, seed, channels_last=True):
+    side = int(round(hw ** 0.5))
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = (1.5 * torch.randn((b, c, side, side), generator=gen, device=cuda) + 0.7).to(dtype)
+    if channels_last:
+        x = x.contiguous(memory_format=torch.channels_last)
+    weight = 0.5 * torch.randn(c, generator=gen, device=cuda) + 1.0
+    bias = 0.5 * torch.randn(c, generator=gen, device=cuda)
+    cots = [torch.randn(x.shape, generator=gen, device=cuda).to(dtype) for _ in range(2)]
+    return x, weight, bias, cots
+
+
+def _assert_norm_close(got, want, dtype, what):
+    """bf16: one ulp of each element (2⁻⁷ of it; the kernel and F.group_norm
+    round statistics differently, so y may land on the neighbouring bf16
+    value); f32: 1e-5 of the largest (sums of H·W·C/G terms in another
+    order)."""
+    scale = want.float().abs().max().item()
+    rtol = 2 ** -7 if dtype == torch.bfloat16 else 0.0
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=1e-5 * scale,
+                               msg=lambda m: f"{what}: {m}")
+
+
+def _check_group_norm(cuda, b, c, hw, dtype, seed=0, channels_last=True, groups=8):
+    """The op on the card against the plain version (F.group_norm in f32,
+    rounded once, and relu): y and r, each output mode, and dx, dγ, dβ under
+    the cotangent of y, of r and of both. The backward applies its forward's
+    ReLU mask, so the plain gradient is taken under the cotangent that mask
+    sends to y (where y is within rounding of 0, the plain y may have the
+    other sign); dx within 1e-4 of its largest (two f32 sums over the group
+    in another order; bf16: one ulp more), dγ and dβ 1e-4 (sums over B·H·W).
+    Repeats give the same bits."""
+    x, weight, bias, (g_y, g_r) = _norm_case(cuda, b, c, hw, dtype, seed, channels_last)
+    before = (launches("group_norm"), tracing.counter("kernel.group_norm.backward_launches"))
+    y, r = group_norm(x, weight, bias, groups, GN_EPS, y=True, relu=True)
+    want_y, want_r = group_norm_plain(x, weight, bias, groups, GN_EPS)
+    assert y.dtype == r.dtype == dtype and y.is_contiguous(memory_format=torch.channels_last)
+    _assert_norm_close(y, want_y, dtype, "y")
+    _assert_norm_close(r, want_r, dtype, "r")
+    assert torch.equal(group_norm(x, weight, bias, groups, GN_EPS)[0], y)
+    assert torch.equal(group_norm(x, weight, bias, groups, GN_EPS, y=False, relu=True)[1], r)
+    assert torch.equal(r, torch.relu(y))
+
+    def grads(cot_y, cot_r):
+        xs, ws, bs = (t.detach().requires_grad_() for t in (x, weight, bias))
+        outs = group_norm(xs, ws, bs, groups, GN_EPS, y=True, relu=True)
+        pairs = [(o, g) for o, g in zip(outs, (cot_y, cot_r)) if g is not None]
+        return torch.autograd.grad([o for o, _ in pairs], (xs, ws, bs), [g for _, g in pairs])
+
+    for cot_y, cot_r in ((g_y, None), (None, g_r), (g_y, g_r)):
+        got = grads(cot_y, cot_r)
+        assert all(torch.equal(a, b_) for a, b_ in zip(got, grads(cot_y, cot_r)))
+        to_y = torch.zeros_like(y) if cot_y is None else cot_y.float()
+        if cot_r is not None:
+            to_y = to_y + torch.where(r > 0, cot_r.float(), 0.0)
+        want = group_norm_vjp(x, weight, bias, groups, GN_EPS, to_y.to(dtype), None)
+        assert got[0].dtype == dtype and got[0].is_contiguous(memory_format=torch.channels_last)
+        for name, a, w in zip(("dx", "dweight", "dbias"), got, want):
+            scale = w.float().abs().max().item()
+            rtol = 2 ** -7 if (name == "dx" and dtype == torch.bfloat16) else 0.0
+            torch.testing.assert_close(a.float(), w.float(), rtol=rtol, atol=1e-4 * scale,
+                                       msg=lambda m, name=name: f"{name}: {m}")
+    torch.cuda.synchronize()
+    assert launches("group_norm") - before[0] == 3 + 6
+    assert tracing.counter("kernel.group_norm.backward_launches") - before[1] == 6
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("c,hw", PRESET_NORM_SHAPES)
+def test_group_norm_kernel_at_every_preset_shape(cuda, c, hw, dtype):
+    _check_group_norm(cuda, 2, c, hw, dtype, seed=c + hw)
+
+
+@pytest.mark.parametrize("case", ["one_sample", "nchw_input", "odd_channels", "serving_batch"])
+def test_group_norm_kernel_edge_cases(cuda, case):
+    """B = 1 (a cluster of CTAs on one sample), an input stored NCHW (copied
+    to channels_last), C = 3 in 3 groups and H·W = 49 (one element a load),
+    and serving's B = 256 at the largest encoder map; repeats give the same
+    bits."""
+    b, c, hw, cl, groups = {"one_sample": (1, 128, 4096, True, 8),
+                            "nchw_input": (3, 96, 256, False, 8),
+                            "odd_channels": (3, 3, 49, True, 3),
+                            "serving_batch": (256, 128, 4096, True, 8)}[case]
+    _check_group_norm(cuda, b, c, hw, torch.bfloat16, seed=b, channels_last=cl, groups=groups)
+    x, weight, bias, _ = _norm_case(cuda, b, c, hw, torch.bfloat16, 9, cl)
+    op = torch.ops.partseg.group_norm
+    first = op(x, weight, bias, groups, GN_EPS, True, True)
+    second = op(x, weight, bias, groups, GN_EPS, True, True)
+    assert all(torch.equal(a, b_) for a, b_ in zip(first, second))
+
+
+def test_group_norm_launches_per_request_and_training_step(cuda):
+    """The registry's counts from the model code: 15 forward launches an
+    infer request, 53 a transfer, and 61 forward and 61 backward a
+    deepfashion training step (the shape encoder on both halves, the
+    appearance encoder, two decodes, the swap's shape encoding)."""
+    fwd, bwd = "kernel.group_norm.launches", "kernel.group_norm.backward_launches"
+    model = init_weights(PartNet(model_config("celeba")), seed=0).eval()
+    x = torch.rand((2, 128, 128, 3), generator=torch.Generator(device=cuda).manual_seed(0),
+                   device=cuda)
+    tracing.reset()
+    make_infer_fn(model)(x)
+    assert tracing.counter(fwd) == 15
+    transfer_batch(model, x, x)
+    assert tracing.counter(fwd) == 15 + 53
+    cfg = train_config("deepfashion")
+    state, period, batches, _ = build_trainer(cfg, 2, seed=0)
+    tracing.reset()
+    period(state, batches, cfg.seed)
+    torch.cuda.synchronize()
+    steps = cfg.augment.warp_every
+    assert (tracing.counter(fwd), tracing.counter(bwd)) == (61 * steps, 61 * steps)

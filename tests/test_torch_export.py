@@ -3,8 +3,8 @@ case with tests/test_export.py: the ``torch.export`` program round-trips
 through save/load and reproduces the direct forward at batch sizes not
 seen at export (symbolic batch); a static batch refuses another size;
 background is label 0. Beside those: the exported graph holds the
-registered kernel op ``partseg::softmax_moments`` (no plain softmax over
-the pixels, no einsum), the program agrees with the JAX package's
+registered kernel ops ``partseg::softmax_moments`` (no plain softmax over
+the pixels, no einsum) and ``partseg::group_norm`` (no aten GroupNorm), the program agrees with the JAX package's
 make_infer_fn on the same converted parameters, and the export CLI.
 
 Tolerances: the program against the eager forward on the CPU, 1e-5 (the
@@ -75,6 +75,10 @@ def test_exported_graph_holds_the_kernel_op(symbolic):
     calls = [node for node in symbolic.graph.nodes if node.op == "call_function"]
     names = [str(node.target) for node in calls]
     assert names.count("partseg.softmax_moments.default") == 1
+    # The shape encoder's GroupNorms: the stem's ResBlock, the depth-1
+    # hourglass's four ResBlocks and the head ConvBlock.
+    assert names.count("partseg.group_norm.default") == 6
+    assert not any("native_group_norm" in name for name in names)
     assert not any("einsum" in name for name in names)
     # The one softmax left is the per-pixel part softmax over the channels.
     softmaxes = [node for node in calls if "softmax" in str(node.target)

@@ -25,6 +25,8 @@ import os
 import torch
 import torch.distributed as dist
 
+from partseg_tpu_torch import tracing
+
 
 def init_distributed(coordinator: str | None = None, backend: str = "gloo",
                      device: torch.device | None = None) -> bool:
@@ -137,13 +139,16 @@ def average(tensors: list[torch.Tensor], group, divisor: int | None = None) -> l
     """Sum ``tensors`` over ``group`` in one all-reduce of a flat f32 buffer
     and divide by ``divisor`` (the group's size unless given). Returns new
     tensors of the inputs' shapes and dtypes; at a group size of 1 and no
-    divisor, returns the inputs."""
+    divisor, returns the inputs. The all-reduce is the span and counter
+    ``dist.grad_reduce`` (``tracing``)."""
     n = group_size(group)
     if n == 1 and divisor is None:
         return tensors
     flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
     if n > 1:
-        dist.all_reduce(flat, group=group)
+        tracing.count("dist.grad_reduce")
+        with tracing.span("dist.grad_reduce"):
+            dist.all_reduce(flat, group=group)
     flat.div_(n if divisor is None else divisor)
     out, i = [], 0
     for t in tensors:

@@ -28,6 +28,12 @@ runs the tps_warp kernel on the gathered full images.
 
 The appearance-swap round rolls the appearance within the data shard,
 as the data-parallel step does.
+
+The step and its parts run in the one-card step's spans (``tracing``):
+``train.step``, ``train.augment`` (the row gather and the pair),
+``train.model``, ``train.perceptual``, ``train.equivariance``,
+``train.swap``, ``train.backward`` and ``train.optimizer``; the gradient
+all-reduce is ``dist.grad_reduce`` (``dist/mesh.py`` ``average``).
 """
 
 from __future__ import annotations
@@ -64,6 +70,7 @@ from partseg_tpu_torch.parallel.spatial_model import (
 )
 from partseg_tpu_torch.partops.assembly import assemble_decoder_input
 from partseg_tpu_torch.partops.moments import precision_from_cov
+from partseg_tpu_torch.tracing import span
 from partseg_tpu_torch.train.state import make_optimizer, trainable
 
 
@@ -239,59 +246,67 @@ def make_spatial_train_step(cfg, model: PartNet, sampler, perceptual: Perceptual
         rows = batch["image"]
         if rows.dtype == torch.uint8:
             rows = rows.float() * (1.0 / 255.0)
-        with torch.no_grad():
+        h = rows.shape[1]
+        with torch.no_grad(), span("train.augment"):
             images = _gather_rows(rows, space)
             pair = make_pair(images.to(mc.dtype), draws.tps, draws.color, sampler,
                              cfg.augment, warp_on=warp_on, tps2=draws.tps2)
-        h = rows.shape[1]
-        r0 = group_rank(space) * h
-        x_s, x_a = pair["x_s"][:, r0:r0 + h], pair["x_a"][:, r0:r0 + h]
-        out = sharded_partnet_forward(model, x_s, x_a, space)
-        l_rec = sharded_perceptual_loss(perceptual, out["recon"], rows, space)
-        l_eq, eq_metrics = equivariance_loss(
-            sampler, pair["tps"], out["mu_s"], out["sigma_s"], out["mu_a"], out["sigma_a"],
-            sigma_weight=lw.equiv_sigma_weight)
-        loss = lw.rec_weight * l_rec + lw.equiv_weight * l_eq
-        metrics = {"rec": l_rec, "equiv": l_eq, **eq_metrics}
-        if lw.seg_weight and mc.background:
-            l_seg = _sharded_seg_consistency(out, space)
-            loss = loss + lw.seg_weight * l_seg
-            metrics["seg"] = l_seg
+            r0 = group_rank(space) * h
+            x_s, x_a = pair["x_s"][:, r0:r0 + h], pair["x_a"][:, r0:r0 + h]
+        with span("train.model"):
+            out = sharded_partnet_forward(model, x_s, x_a, space)
+        with span("train.perceptual"):
+            l_rec = sharded_perceptual_loss(perceptual, out["recon"], rows, space)
+        with span("train.equivariance"):
+            l_eq, eq_metrics = equivariance_loss(
+                sampler, pair["tps"], out["mu_s"], out["sigma_s"], out["mu_a"], out["sigma_a"],
+                sigma_weight=lw.equiv_sigma_weight)
+            loss = lw.rec_weight * l_rec + lw.equiv_weight * l_eq
+            metrics = {"rec": l_rec, "equiv": l_eq, **eq_metrics}
+            if lw.seg_weight and mc.background:
+                l_seg = _sharded_seg_consistency(out, space)
+                loss = loss + lw.seg_weight * l_seg
+                metrics["seg"] = l_seg
         if lw.swap_weight:
             # The roll stays within the data shard, as in the data-parallel step.
-            recon_sw = sharded_decoder(model.decoder, out["mu_a"], out["sigma_a"],
-                                       torch.roll(out["appearance"], 1, 0), space)
-            logits_sw = sharded_shape_encoder(model.shape_enc, recon_sw.to(mc.dtype), space)
-            out_size = mc.decoder_out_size or mc.img_size
-            h_sw = (out_size // mc.stem_stride) * (2 if mc.head_upsample else 1)
-            _, mu_sw, _ = _sharded_stats(logits_sw, mc, h_sw, space)
-            l_swap = torch.mean(torch.sum((mu_sw - out["mu_a"].float()) ** 2, dim=-1))
-            loss = loss + lw.swap_weight * l_swap
+            with span("train.swap"):
+                recon_sw = sharded_decoder(model.decoder, out["mu_a"], out["sigma_a"],
+                                           torch.roll(out["appearance"], 1, 0), space)
+                logits_sw = sharded_shape_encoder(model.shape_enc, recon_sw.to(mc.dtype), space)
+                out_size = mc.decoder_out_size or mc.img_size
+                h_sw = (out_size // mc.stem_stride) * (2 if mc.head_upsample else 1)
+                _, mu_sw, _ = _sharded_stats(logits_sw, mc, h_sw, space)
+                l_swap = torch.mean(torch.sum((mu_sw - out["mu_a"].float()) ** 2, dim=-1))
+                loss = loss + lw.swap_weight * l_swap
             metrics["swap"] = l_swap
         metrics["loss"] = loss
         return loss, metrics
 
     def train_step(state, batch: dict, seed: int = 0, draws: PairDraws | None = None):
-        rows = batch["image"]
-        if draws is None:
-            aug_id = batch.get("aug_id")
-            if aug_id is None:
-                aug_id = np.arange(rows.shape[0])
-            draws = keyed_pair_draws(seed, state.step, aug_id, sampler, cfg.augment, rows.device)
-        loss, metrics = loss_fn(batch, draws)
-        params = list(trainable(state.model).values())
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
-        names = list(metrics)
-        # Σ over every rank / world: Σ over space is space × the shard's
-        # gradient (the adjoint scheme), so this is the mean over data.
-        reduced = average(grads + [metrics[k].detach().float() for k in names],
-                          dist.group.WORLD, divisor=mesh.world)
-        grads = reduced[:len(grads)]
-        metrics = dict(zip(names, reduced[len(grads):]))
-        metrics["grad_norm"] = optimizer.update(state.model, grads, state.opt_state)
-        state.step += 1
-        return state, metrics
+        with span("train.step"):
+            rows = batch["image"]
+            if draws is None:
+                aug_id = batch.get("aug_id")
+                if aug_id is None:
+                    aug_id = np.arange(rows.shape[0])
+                draws = keyed_pair_draws(seed, state.step, aug_id, sampler, cfg.augment,
+                                         rows.device)
+            loss, metrics = loss_fn(batch, draws)
+            params = list(trainable(state.model).values())
+            with span("train.backward"):
+                grads = torch.autograd.grad(loss, params, allow_unused=True)
+                grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+            names = list(metrics)
+            # Σ over every rank / world: Σ over space is space × the shard's
+            # gradient (the adjoint scheme), so this is the mean over data.
+            reduced = average(grads + [metrics[k].detach().float() for k in names],
+                              dist.group.WORLD, divisor=mesh.world)
+            grads = reduced[:len(grads)]
+            metrics = dict(zip(names, reduced[len(grads):]))
+            with span("train.optimizer"):
+                metrics["grad_norm"] = optimizer.update(state.model, grads, state.opt_state)
+            state.step += 1
+            return state, metrics
 
     return train_step
 

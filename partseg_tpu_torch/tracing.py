@@ -32,7 +32,8 @@ registry sums by name. Event pairs are resolved when read; past
 ``MAX_PENDING`` unread pairs, each new pair resolves the oldest that have
 completed (``Event.query``, no wait).
 
-The program's spans: ``train.step`` (make_train_step's step) and within it
+The program's spans: ``train.step`` (make_train_step's step, and the
+spatial step of ``parallel/spatial_train.py``) and within it
 ``train.augment``, ``train.model``, ``train.perceptual``,
 ``train.equivariance``, ``train.swap``, ``train.backward`` and
 ``train.optimizer``; ``serve.infer`` (make_infer_fn's callable) and
@@ -40,9 +41,12 @@ The program's spans: ``train.step`` (make_train_step's step) and within it
 ``partnet.appearance_encoder`` and ``partnet.decoder`` (every call from
 PartNet); ``loop.fetch`` (the train loop's fetch and copy of a group of
 batches); ``spatial.halo`` and ``spatial.reduce`` (each collective of the
-spatial path). Its counters: ``kernel.<name>.launches`` for each hand
-kernel's forward launches, ``kernel.render_assemble.backward_launches``,
-and ``spatial.halo`` and ``spatial.reduce`` for the collectives.
+spatial path); ``dist.grad_reduce`` (the gradient all-reduce of the
+data-parallel and spatial steps, ``dist/mesh.py`` ``average``). Its
+counters: ``kernel.<name>.launches`` for each hand kernel's forward
+launches, ``kernel.render_assemble.backward_launches``, and
+``spatial.halo``, ``spatial.reduce`` and ``dist.grad_reduce`` for the
+collectives.
 """
 
 from __future__ import annotations

@@ -16,6 +16,12 @@ Modes:
   spatial — the spatial step on a 2 data × 2 space mesh, without and with
             the swap loss, and the 2-rank data-parallel step of ranks 0
             and 2 (one per data shard) with the swap loss.
+  bench   — ``train.loop.build_step_fn``'s spatial step on a mesh of
+            ``space`` ranks a data shard, from a configuration of the
+            benchmark's form and its seeded weights (``h100_bench``), once
+            as it is and once with the benchmark's ``no_halo`` fault
+            planted; under a CPU profiler where ``profile`` is set, with
+            the span registry's snapshot.
 """
 
 from __future__ import annotations
@@ -275,7 +281,47 @@ def run_spatial(arrays, rank: int, world: int) -> dict:
     return out
 
 
-MODES = {"dp": run_dp, "blocks": run_blocks, "spatial": run_spatial}
+def run_bench(arrays, rank: int, world: int) -> dict:
+    from contextlib import nullcontext
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from h100_bench import program, weights
+    from h100_bench.drivers.spatial_train import no_halo
+    from partseg_tpu_torch import tracing
+    from partseg_tpu_torch.train import build_perceptual
+    from partseg_tpu_torch.train.loop import build_step_fn
+
+    cfg, seed = json.loads(str(arrays["config"])), int(arrays["seed"])
+    tc = dataclasses.replace(program.train_config(cfg, "program"), space_shards=int(arrays["space"]))
+    mesh = make_spatial_mesh(tc.space_shards)
+    images, ids = arrays["images"], arrays["aug_id"]
+    b, h = images.shape[0] // mesh.n_data, images.shape[1] // mesh.space
+    sl = slice(mesh.data_index * b, (mesh.data_index + 1) * b)
+    rows = torch.from_numpy(np.ascontiguousarray(
+        images[sl, mesh.space_index * h:(mesh.space_index + 1) * h]))
+    out = {}
+    for tag, fault in (("program/", nullcontext), ("no_halo/", no_halo)):
+        model = program.build_model(tc, program.model_weights(cfg, seed, "cpu"), "cpu")
+        perceptual = build_perceptual(tc, "cpu")
+        weights.load(perceptual.vgg, program.vgg_weights(cfg, seed, "cpu"))
+        state = create_state(tc, model)
+        step = build_step_fn(tc, model, tc.augment.make_sampler(), perceptual, mesh)
+        tracing.reset()
+        profiled = profile(activities=[ProfilerActivity.CPU]) if arrays["profile"] else nullcontext()
+        with fault(), profiled:
+            state, metrics = step(state, ({"image": rows, "aug_id": ids[sl]},), seed)
+        out.update(step_outputs(tag, state, metrics))
+        snap = tracing.snapshot()
+        out[f"{tag}registry"] = np.asarray(json.dumps(
+            {"calls": {k: v["calls"] for k, v in snap["spans"].items()},
+             "counters": snap["counters"]}))
+        if arrays["profile"]:
+            break
+    return out
+
+
+MODES = {"dp": run_dp, "blocks": run_blocks, "spatial": run_spatial, "bench": run_bench}
 
 
 def main() -> None:

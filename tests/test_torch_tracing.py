@@ -1,7 +1,8 @@
 """The span and counter registry (partseg_tpu_torch/tracing.py): off, a span
 reads the profiler's flag and nothing else; under torch.profiler spans nest
 and count, with no device time on the CPU and their CPU half in the trace;
-the pending event pairs stay bounded and resolve when read; the counters.
+the pending event pairs stay bounded and resolve when read; the counters;
+the spatial step's spans and its collectives' counters on two gloo ranks.
 Marked ``cuda``: on the card a span's device ms agrees with the device-side
 range the profiler gives it, and a span inside a CUDA graph's capture does
 not break the capture."""
@@ -137,6 +138,40 @@ def test_train_step_spans_under_a_cpu_profiler():
                      "partnet.shape_encoder": 2, "partnet.appearance_encoder": 1,
                      "partnet.decoder": 2}
     assert all(v["device_ms"] is None for v in spans.values())
+
+
+def test_spatial_step_spans_and_collective_counters(tmp_path):
+    """One spatial step (``train.loop.build_step_fn`` on 1 data × 2 space gloo
+    ranks, tests/_torch_dist_child.py) under a CPU profiler records each
+    ``train.*`` span and ``dist.grad_reduce`` once, and the counters of the
+    collectives match their spans' calls."""
+    import json
+
+    import numpy as np
+
+    from _torch_dist_child import launch
+    from h100_bench import program
+    from h100_bench import run as bench
+    from h100_bench.tests import tiny
+
+    cfg = json.loads((bench.BENCH_DIR / "configs" / "celeba256_spatial.json").read_text())
+    cfg["model"].update(tiny.TINY_MODEL)
+    cfg["loss"].update(tiny.TINY_LOSS)
+    seed, b = 5, 2
+    images = program.image_pool(1, b, cfg["model"]["img_size"], seed, "cpu")[0]
+    np.savez(tmp_path / "inputs.npz", config=np.asarray(json.dumps(cfg)), seed=np.asarray(seed),
+             space=np.asarray(2), images=images.numpy(), aug_id=np.arange(b),
+             profile=np.asarray(True))
+    for rank in launch("bench", 2, tmp_path / "inputs.npz", tmp_path / "out", timeout=120):
+        registry = json.loads(str(rank["program/registry"]))
+        calls, counters = registry["calls"], registry["counters"]
+        assert {k: v for k, v in calls.items() if k.startswith("train.")} == {
+            "train.step": 1, "train.augment": 1, "train.model": 1, "train.perceptual": 1,
+            "train.equivariance": 1, "train.swap": 1, "train.backward": 1,
+            "train.optimizer": 1}
+        assert calls["dist.grad_reduce"] == counters["dist.grad_reduce"] == 1
+        for name in ("spatial.halo", "spatial.reduce"):
+            assert counters[name] == calls[name] > 0, name
 
 
 @pytest.fixture

@@ -26,6 +26,13 @@ Phases (one JSON line each; any failure exits non-zero):
                     (library_ms); then one B = 256 infer request's
                     profiled device time against its CUDA-event time, and
                     its 15 GroupNorm kernels in the profile.
+     bias_act     — the conv epilogue kernels (partseg::bias_act, each
+                    variant) at [256, 64, 64, 64] and [256, 32, 128, 128]
+                    bf16: the output bit for bit the chain it replaced;
+                    device ms of the forward and the backward beside the
+                    bytes' bound and the plain version, in turns; a sweep
+                    of the grid's CTAs a SM; the host's µs per call of the
+                    op, its parts and the calls it replaced.
   5. serving      — the CelebA model (full width, bf16, seeded random
                     weights, use_pallas=True) answers B = 256 inference and
                     transfer requests; the launch counters show the path
@@ -140,7 +147,7 @@ final status line.
 
 With --baseline DIR (DIR holds another checkout of the repo, such as a
 `git archive` of an earlier commit unpacked into a gitignored directory)
-it runs only device, build, kernels_warp, turns, group_norm, tps_wide,
+it runs only device, build, kernels_warp, turns, group_norm, bias_act, tps_wide,
 timing_wide_decodes and train_k16: both checkouts' csrc/ built into two
 libraries; tps_warp's output held bit for bit to the baseline's at the
 training warp and at every tps_warp case of the card tests (and to the
@@ -213,6 +220,8 @@ from partseg_tpu_torch.models.partnet import PartNet, PartNetConfig, init_weight
 from partseg_tpu_torch.partops import bilinear_sample
 from partseg_tpu_torch.partops.kernels import (
     _build,
+    bias_act,
+    bias_act_plain,
     bilinear_sample_fused,
     bilinear_sample_plain,
     group_norm_plain,
@@ -225,6 +234,7 @@ from partseg_tpu_torch.partops.kernels import (
     tps_warp,
     tps_warp_plain,
 )
+from partseg_tpu_torch.partops.kernels.bias_act import bias_act_backward
 from partseg_tpu_torch.partops.kernels.bilinear_sample import sample_with_grads
 from partseg_tpu_torch.partops.kernels.group_norm import group_norm_backward, group_norm_vjp
 from partseg_tpu_torch.partops.kernels.render_assemble import (
@@ -252,6 +262,7 @@ from partseg_tpu_torch.train import (
 )
 from partseg_tpu_torch.train.state import trainable, warmup_cosine
 
+bias_act_mod = importlib.import_module("partseg_tpu_torch.partops.kernels.bias_act")
 ROOT = Path(__file__).resolve().parent
 BATCH = 256                   # serving requests
 TRAIN_BATCH = 128             # speed128's per-card batch
@@ -945,6 +956,171 @@ def phase_group_norm(smi: str, served=None, baseline: bool = False) -> dict:
     return {"rows": rows}
 
 
+BA_SHAPES = ((256, 64, 64, 64), (256, 32, 128, 128))   # an encoder's inner conv, the decoder's
+BA_VARIANTS = ("relu", "residual", "skip", "bias")
+BA_TENSORS = {"relu": 2, "residual": 3, "skip": 3, "bias": 2}           # forward: read, write
+BA_BACKWARD_TENSORS = {"relu": 3, "residual": 1, "skip": 1, "bias": 1}  # g (r read, g_z written)
+BA_LAUNCHES = "kernel.bias_act.launches"
+BA_BACKWARD_LAUNCHES = "kernel.bias_act.backward_launches"
+HOST_CALLS = 200
+
+
+def host_us(fn, calls: int = HOST_CALLS, warmup: int = 20, runs: int = 5) -> float:
+    """The host's µs per call of ``fn`` issued back to back onto an idle
+    card (synchronised first; the card runs behind): the median of ``runs``."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def _bias_act_host(z, x, w, bias) -> dict:
+    """Host µs per call at z's shape: the op's paths (the eager path and the
+    registered op, each without and with autograd) and parts (the ctypes
+    call with its launch, the allocation, the check), and the calls it
+    replaced (the bias cast, the convolution's own bias add, the ReLU, the
+    residual sum)."""
+    dt = z.dtype
+    lib = _build.library()
+    zg = z.detach().requires_grad_()
+    bg = bias.detach().requires_grad_()
+    res = torch.randn_like(z)
+    out = torch.empty_like(z, memory_format=torch.channels_last)
+    p = bias_act_mod.launch_plan(z.numel(), z.shape[1], 2, True)
+    stream = _build.stream_handle(z.device)
+    args = (z.data_ptr(), bias.data_ptr(), None, None, out.data_ptr(), 1, p.vec, 1, z.numel(),
+            z.shape[1], p.threads, p.ctas, stream)
+    op = torch.ops.partseg.bias_act
+    parts = {
+        "ctypes_call": host_us(lambda: lib.partseg_bias_act_fwd(*args)),
+        "allocation": host_us(lambda: torch.empty_like(z, memory_format=torch.channels_last)),
+        "check": host_us(lambda: bias_act_mod._check(z, bias, None, None, None, True)),
+        "wrapper_no_grad": host_us(lambda: bias_act_mod._bias_act_cuda(z, bias, None, None, None,
+                                                                        True)),
+        "bias_act_no_grad": host_us(lambda: bias_act(z, bias, relu=True)),
+        "registered_op_no_grad": host_us(lambda: op(z, bias, None, None, None, True)),
+        "bias_act_grad": host_us(lambda: bias_act(zg, bg, relu=True)),
+        "registered_op_grad": host_us(lambda: op(zg, bg, None, None, None, True)),
+    }
+    b16 = bias.to(dt)
+    replaced = {
+        "bias_cast_grad": host_us(lambda: bg.to(dt)),
+        "conv_with_bias": host_us(lambda: F.conv2d(x, w, b16, padding=1), calls=50),
+        "conv_without_bias": host_us(lambda: F.conv2d(x, w, None, padding=1), calls=50),
+        "relu_grad": host_us(lambda: F.relu(zg)),
+        "residual_add_grad": host_us(lambda: res + zg),
+    }
+    return {"op": parts, "replaced": replaced}
+
+
+def phase_bias_act(smi: str) -> dict:
+    """The conv epilogue kernels (partseg::bias_act) at [256, 64, 64, 64] and
+    [256, 32, 128, 128] bf16, each variant: the output held bit for bit to
+    the chain it replaced (the convolution with its bias, then the ReLU or
+    the residual sum); device ms of the forward and the backward beside
+    the bytes' bound and the plain version's (turns: plain, kernel, kernel,
+    plain); a sweep of the grid's CTAs a SM at the first shape; the host's
+    µs per call of the op, its parts, and the calls it replaced, at the
+    first shape and at [8, 64, 8, 8], where the card keeps up with the host."""
+    rows = []
+    host = None
+    for b, c, h, w in BA_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(SEED + c)
+        cl = torch.channels_last
+        cin = 2 * c
+        x = torch.randn((b, cin, h, w), generator=gen, device="cuda").to(
+            torch.bfloat16).contiguous(memory_format=cl)
+        wt = (0.1 * torch.randn((c, cin, 3, 3), generator=gen, device="cuda")).to(torch.bfloat16)
+        ws = (0.1 * torch.randn((c, cin, 1, 1), generator=gen, device="cuda")).to(torch.bfloat16)
+        bias = torch.randn(c, generator=gen, device="cuda")
+        bs = torch.randn(c, generator=gen, device="cuda")
+        res = torch.randn((b, c, h, w), generator=gen, device="cuda").to(
+            torch.bfloat16).contiguous(memory_format=cl)
+        g = torch.randn((b, c, h, w), generator=gen, device="cuda").to(
+            torch.bfloat16).contiguous(memory_format=cl)
+        z = F.conv2d(x, wt, None, padding=1)
+        zs = F.conv2d(x, ws)
+        for variant in BA_VARIANTS:
+            kw = {"relu": {"relu": True}, "residual": {"residual": res},
+                  "skip": {"skip": zs, "skip_bias": bs}, "bias": {}}[variant]
+            y = F.conv2d(x, wt, bias.to(torch.bfloat16), padding=1)
+            want = {"relu": lambda: F.relu(y), "residual": lambda: res + y,
+                    "skip": lambda: F.conv2d(x, ws, bs.to(torch.bfloat16)) + y,
+                    "bias": lambda: y}[variant]()
+            got = bias_act(z, bias, **kw)
+            check(torch.equal(got, want), f"bias_act {variant} at {[b, c, h, w]}: not the bits "
+                                          f"of the chain it replaced ({max_err(got, want)})")
+            r = got if variant == "relu" else None
+
+            def forward(kw=kw):
+                return bias_act(z, bias, **kw)
+
+            def plain_forward(kw=kw):
+                return bias_act_plain(z, bias, **kw)
+
+            def backward(r=r):
+                return bias_act_backward(g, r, True)
+
+            zl, bl = z.detach().requires_grad_(), bias.detach().requires_grad_()
+
+            def plain_backward(variant=variant):
+                out = bias_act_plain(zl, bl, relu=variant == "relu")
+                return torch.autograd.grad(out, [zl, bl], g)
+
+            d_z, d_b = backward()
+            want_dz = torch.ops.aten.threshold_backward(g, r, 0) if r is not None else g
+            want_db = want_dz.double().sum((0, 2, 3))
+            db_err = ((d_b.double() - want_db).abs() / want_dz.double().abs().sum((0, 2, 3))
+                      ).max().item()
+            check(torch.equal(d_z, want_dz) and db_err <= 1e-5,
+                  f"bias_act backward {variant} at {[b, c, h, w]}: d_b error {db_err}")
+            plain_ms, kernel_ms = turns_ms(plain_forward, forward)
+            plain_bwd_ms, kernel_bwd_ms = turns_ms(plain_backward, backward)
+            row = {"shape": [b, c, h, w], "variant": variant, "dtype": "bf16",
+                   "plan": dataclasses.asdict(bias_act_mod.launch_plan(z.numel(), c, 2, True)),
+                   "bound_ms": group_norm_bound(b, c, h, w, BA_TENSORS[variant]),
+                   "turns_device_ms": {"plain": plain_ms, "kernel": kernel_ms},
+                   "backward_bound_ms": group_norm_bound(b, c, h, w,
+                                                         BA_BACKWARD_TENSORS[variant]),
+                   "turns_backward_device_ms": {"plain": plain_bwd_ms, "kernel": kernel_bwd_ms},
+                   "d_b_error_over_sum_abs": db_err,
+                   "ms": event_ms(forward, inner=KERNEL_INNER)}
+            row["device_over_bound"] = statistics.mean(kernel_ms) / row["bound_ms"]
+            row["backward_over_bound"] = (statistics.mean(kernel_bwd_ms)
+                                          / row["backward_bound_ms"])
+            rows.append(row)
+            del got, want, y, d_z, d_b, want_dz
+        if host is None:
+            sweep = {}
+            default = bias_act_mod.CTAS_PER_SM
+            for per_sm in (2, 4, 8, 16, 32):
+                bias_act_mod.CTAS_PER_SM = per_sm
+                bias_act_mod.launch_plan.cache_clear()
+                relu_r = bias_act(z, bias, relu=True)
+                sweep[per_sm] = {
+                    "relu": device_ms(lambda: bias_act(z, bias, relu=True)),
+                    "residual": device_ms(lambda: bias_act(z, bias, residual=res)),
+                    "backward_relu": device_ms(lambda: bias_act_backward(g, relu_r, True)),
+                    "backward_bias": device_ms(lambda: bias_act_backward(g, None, True))}
+            bias_act_mod.CTAS_PER_SM = default
+            bias_act_mod.launch_plan.cache_clear()
+            host = {"shape": [b, c, h, w], **_bias_act_host(z, x, wt, bias)}
+            small = [t[:8, :, :8, :8].contiguous(memory_format=cl) for t in (x, z)]
+            host_small = {"shape": list(small[1].shape),
+                          **_bias_act_host(small[1], small[0], wt, bias)}
+        del x, z, zs, res, g
+    emit("bias_act", rows=rows, ctas_per_sm_sweep=sweep, host_us=host,
+         host_us_small=host_small, nvidia_smi=smi)
+    return {"rows": rows, "host_us": host}
+
+
 def serving_launches() -> dict:
     return {k: launch_counts()[k] for k in ("softmax_moments", "render_assemble")}
 
@@ -962,10 +1138,12 @@ def phase_serving(cfg) -> dict:
     out = infer(x_s)
     after_infer = serving_launches()
     norms_infer = tracing.counter(GN_LAUNCHES)
+    epilogues_infer = tracing.counter(BA_LAUNCHES)
     recon = transfer_batch(model, x_s, x_a)
     torch.cuda.synchronize()
     launches = serving_launches()
     norms = tracing.counter(GN_LAUNCHES)
+    epilogues = tracing.counter(BA_LAUNCHES)
     spans = tracing.snapshot()["spans"]
     check(spans == {}, f"the serving path ran spans with no profiler on: {spans}")
 
@@ -990,8 +1168,11 @@ def phase_serving(cfg) -> dict:
           f"infer + transfer launches {launches}, expected softmax_moments 3, render_assemble 4")
     check((norms_infer, norms) == (15, 15 + 53),
           f"GroupNorm launches {norms_infer} (infer), {norms} (infer + transfer): expected 15, 68")
+    check((epilogues_infer, epilogues) == (45, 45 + 160),
+          f"bias_act launches {epilogues_infer} (infer), {epilogues} (infer + transfer): "
+          "expected 45, 205")
     emit("serving", batch=BATCH, dtype=str(cfg.dtype), launches_after_infer=after_infer,
-         launches=launches, group_norm_launches=norms,
+         launches=launches, group_norm_launches=norms, bias_act_launches=epilogues,
          seg_labels=sorted(torch.unique(seg).tolist()),
          recon_mean=recon.float().mean().item())
     return {"model": model, "x_s": x_s, "x_a": x_a, "launches": launches}
@@ -1293,6 +1474,10 @@ def phase_train_k16(smi: str, old=None) -> dict:
     steps = cfg.augment.warp_every
     check(norms == (61 * steps, 61 * steps),
           f"train_k16 GroupNorm launches {norms}, expected {61 * steps} forward and backward")
+    epilogues = (tracing.counter(BA_LAUNCHES), tracing.counter(BA_BACKWARD_LAUNCHES))
+    check(epilogues == (205 * steps, 195 * steps),
+          f"train_k16 bias_act launches {epilogues}, expected {205 * steps} forward and "
+          f"{195 * steps} backward")
     torch.cuda.reset_peak_memory_stats()
     period_ms = event_ms(lambda: period(state, batches, cfg.seed), runs=5, warmup=1)
     period_device_ms = device_ms(lambda: period(state, batches, cfg.seed), calls=2, warmup=0)
@@ -1323,6 +1508,7 @@ def phase_train_k16(smi: str, old=None) -> dict:
     emit("train_k16", config="deepfashion", batch=K16_BATCH, dtype=str(m.dtype),
          n_parts=m.n_parts, vgg_mode=perceptual.vgg_mode, lr=lr, metrics=values,
          max_abs_param_change=moved, launches=launches, group_norm_launches=norms,
+         bias_act_launches=epilogues,
          backward_plans=[backward_plan(m.n_parts, f, (m.decoder_out_size or m.img_size)
                                        // 2 ** (m.decoder_scales - 1 - i), K16_BATCH)
                          for i, f in enumerate(m.decoder_features[:m.decoder_scales])],
@@ -3268,6 +3454,7 @@ def main() -> int:
         phase_warp_kernels(old)
         phase_turns(cfg, args.baseline, smi)
         phase_group_norm(smi, baseline=True)
+        phase_bias_act(smi)
         phase_tps_wide(smi, old)
         phase_wide_decodes(smi, old)
         with recording("train_k16"):
@@ -3279,6 +3466,7 @@ def main() -> int:
     phase_backward(cfg)
     served = phase_serving(cfg)
     phase_group_norm(smi, served)
+    phase_bias_act(smi)
     phase_parity(cfg)
     trained = phase_train()
     zeros_launches = phase_train_zeros()

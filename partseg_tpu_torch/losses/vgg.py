@@ -67,7 +67,7 @@ class VGG19Features(nn.Module):
         for block, i in self.layers:
             if i == 1 and block > 1:
                 h = F.max_pool2d(h, 2, 2)
-            h = F.relu(getattr(self, f"conv{block}_{i}")(h))
+            h = getattr(self, f"conv{block}_{i}")(h, relu=True)
             if f"relu{block}_{i}" in self.extract:
                 feats[f"relu{block}_{i}"] = h
         return feats

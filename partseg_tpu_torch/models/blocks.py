@@ -12,14 +12,20 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from partseg_tpu_torch.partops.kernels import group_norm
+from partseg_tpu_torch.partops.kernels import bias_act, group_norm
 
 NORMS = ("block", "group", "none")
 
 
 class Conv2d(nn.Conv2d):
     """Flax ``nn.Conv`` twin: square kernel, stride 1, "SAME" padding, f32
-    parameters, input/kernel/bias cast to ``dtype`` for the product."""
+    parameters, input/kernel/bias cast to ``dtype`` for the product.
+
+    The product runs without the bias (``product``); the op
+    ``partseg::bias_act`` (``partops/kernels/bias_act.py``) then adds it in
+    one pass together with what consumes the output next: ``relu``, the
+    sum with a ``residual``, or the sum with a ``skip`` convolution's
+    output, that convolution's bias added in the same pass."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel: int,
                  dtype: torch.dtype = torch.bfloat16):
@@ -28,9 +34,21 @@ class Conv2d(nn.Conv2d):
         super().__init__(in_channels, out_channels, kernel, padding=kernel // 2)
         self.compute_dtype = dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def product(self, x: torch.Tensor) -> torch.Tensor:
+        """The convolution without its bias, in ``dtype``."""
         dt = self.compute_dtype
-        return F.conv2d(x.to(dt), self.weight.to(dt), self.bias.to(dt), padding=self.padding)
+        return F.conv2d(x.to(dt), self.weight.to(dt), None, padding=self.padding)
+
+    def forward(self, x: torch.Tensor, *, relu: bool = False,
+                residual: torch.Tensor | None = None,
+                skip: tuple[Conv2d, torch.Tensor] | None = None) -> torch.Tensor:
+        """conv(x) + bias; then its ReLU, or ``residual`` + it, or for
+        ``skip`` = (conv_s, x_s), conv_s(x_s) + it."""
+        z = self.product(x)
+        if skip is None:
+            return bias_act(z, self.bias, relu=relu, residual=residual)
+        conv, xs = skip
+        return bias_act(z, self.bias, skip=conv.product(xs), skip_bias=conv.bias)
 
 
 class Linear(nn.Linear):
@@ -77,10 +95,15 @@ class ConvBlock(nn.Module):
         self.norm = GroupNorm(min(groups, in_channels), in_channels) if norm == "group" else None
         self.conv = Conv2d(in_channels, features, kernel, dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, *, activated: bool = False, **epilogue) -> torch.Tensor:
+        """``activated``: x is already relu(x) (the previous convolution's
+        ``relu`` epilogue), for a block without a norm. ``epilogue``: the
+        keywords of ``Conv2d.forward``."""
         if self.norm is not None:
-            return self.conv(self.norm.with_relu(x, keep_y=False)[1])
-        return self.conv(F.relu(x))
+            x = self.norm.with_relu(x, keep_y=False)[1]
+        elif not activated:
+            x = F.relu(x)
+        return self.conv(x, **epilogue)
 
 
 class _F8Store(torch.autograd.Function):
@@ -138,19 +161,23 @@ class ResBlock(nn.Module):
         self.act_quant = act_quant
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        convs = list(self.convs)
+        first, mid, last = self.convs
+        # Without inner GroupNorms each inner convolution's output feeds only
+        # the next block's ReLU, which its epilogue applies.
+        relu = first.norm is None
         if self.norm is not None:
             # One pass gives the residual branch's input and its ReLU, which
             # the first ConvBlock (norm "none": relu → conv) would recompute.
             x, y = self.norm.with_relu(x)
-            y = convs.pop(0).conv(y)
+            y = first.conv(y, relu=True)
         else:
-            y = x
-        for conv in convs:
-            y = conv(y)
-        if self.skip is not None:
-            x = self.skip(x)
-        return quantize_activation(x + y, self.act_quant)
+            y = first(x, relu=relu)
+        y = mid(y, activated=relu, relu=relu)
+        if self.skip is None:
+            out = last(y, activated=relu, residual=x)
+        else:
+            out = last(y, activated=relu, skip=(self.skip, x))
+        return quantize_activation(out, self.act_quant)
 
 
 def upsample2x(x: torch.Tensor) -> torch.Tensor:

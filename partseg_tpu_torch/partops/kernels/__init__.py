@@ -3,11 +3,13 @@ wrapper validates its inputs, runs the plain PyTorch version on a CPU
 tensor, and launches its hand-written kernel (built from ``csrc/`` at
 first use) on a CUDA tensor, counting forward launches in the registry
 counter ``kernel.<name>.launches`` (``partseg_tpu_torch.tracing``; and
-render_assemble and group_norm their backward kernels' in
+render_assemble, group_norm and bias_act their backward kernels' in
 ``kernel.<name>.backward_launches``). Each is differentiable: a registered
-op with its autograd (softmax_moments, group_norm) or an autograd
-Function."""
+op with its autograd (softmax_moments, group_norm, bias_act) or an
+autograd Function. bias_act replaces no Pallas kernel either: it is a
+convolution's bias epilogue."""
 
+from partseg_tpu_torch.partops.kernels.bias_act import bias_act, bias_act_plain
 from partseg_tpu_torch.partops.kernels.bilinear_sample import (
     bilinear_sample_fused,
     bilinear_sample_plain,
@@ -38,4 +40,6 @@ __all__ = [
     "bilinear_sample_plain",
     "group_norm",
     "group_norm_plain",
+    "bias_act",
+    "bias_act_plain",
 ]

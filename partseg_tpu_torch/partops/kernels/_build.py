@@ -36,11 +36,11 @@ COMPILE_FLAGS = (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-split-compile=0",
 )
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # Every C entry point: its argument types (pointers and the stream as
-# c_void_p, ints as c_int, floats as c_float; see the comment above each in csrc/) and its
-# return type. ctypes would pass an unannotated Python int as a 32-bit int
-# and cut a pointer.
+# c_void_p, ints as c_int, long longs as c_longlong, floats as c_float; see
+# the comment above each in csrc/) and its return type. ctypes would pass an
+# unannotated Python int as a 32-bit int and cut a pointer.
 SIGNATURES = {
     "partseg_error_string": ([_I], ctypes.c_char_p),
     "partseg_softmax_moments_f32": ([_P] * 3 + [_I] * 5 + [_P], _I),
@@ -52,6 +52,8 @@ SIGNATURES = {
     "partseg_bilinear_sample": ([_P, _I, _P, _P, _P, _P] + [_I] * 6 + [_P], _I),
     "partseg_group_norm_fwd": ([_P] * 7 + [_I] * 6 + [_F] + [_I] * 4 + [_P], _I),
     "partseg_group_norm_bwd": ([_P] * 9 + [_I] * 10 + [_P], _I),
+    "partseg_bias_act_fwd": ([_P] * 5 + [_I] * 3 + [_L] + [_I] * 3 + [_P], _I),
+    "partseg_bias_act_bwd": ([_P] * 6 + [_I] * 3 + [_L] + [_I] * 3 + [_P], _I),
 }
 
 
@@ -126,18 +128,22 @@ def check_launch(err: int, name: str) -> None:
 
 
 def stream_handle(device: torch.device) -> int:
-    """PyTorch's current CUDA stream on ``device``, as a pointer-sized int."""
-    return torch.cuda.current_stream(device).cuda_stream
+    """PyTorch's current CUDA stream on ``device``, as a pointer-sized int
+    (read without making a ``torch.cuda.Stream`` object)."""
+    index = torch.cuda.current_device() if device.index is None else device.index
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
-def launch(entry: str, device: torch.device, *args, lib: ctypes.CDLL | None = None) -> None:
+def launch(entry: str, device: torch.device, *args, lib: ctypes.CDLL | None = None,
+           stream: int | None = None) -> None:
     """Call the C entry point ``entry`` with ``args`` and the current stream
-    of ``device`` appended; raise if it returns a CUDA error. The device is
-    made current only when it is not already."""
+    of ``device`` (or ``stream``, that handle) appended; raise if it returns
+    a CUDA error. The device is made current only when it is not already."""
     fn = getattr(lib or library(), entry)
+    handle = stream_handle(device) if stream is None else stream
     if device.index == torch.cuda.current_device():
-        err = fn(*args, stream_handle(device))
+        err = fn(*args, handle)
     else:
         with torch.cuda.device(device):
-            err = fn(*args, stream_handle(device))
+            err = fn(*args, handle)
     check_launch(err, entry.removeprefix("partseg_"))

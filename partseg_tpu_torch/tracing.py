@@ -44,7 +44,8 @@ batches); ``spatial.halo`` and ``spatial.reduce`` (each collective of the
 spatial path); ``dist.grad_reduce`` (the gradient all-reduce of the
 data-parallel and spatial steps, ``dist/mesh.py`` ``average``). Its
 counters: ``kernel.<name>.launches`` for each hand kernel's forward
-launches, ``kernel.render_assemble.backward_launches``, and
+launches, ``kernel.<name>.backward_launches`` for render_assemble's,
+group_norm's and bias_act's backward kernels, and
 ``spatial.halo``, ``spatial.reduce`` and ``dist.grad_reduce`` for the
 collectives.
 """

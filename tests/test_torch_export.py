@@ -4,7 +4,9 @@ through save/load and reproduces the direct forward at batch sizes not
 seen at export (symbolic batch); a static batch refuses another size;
 background is label 0. Beside those: the exported graph holds the
 registered kernel ops ``partseg::softmax_moments`` (no plain softmax over
-the pixels, no einsum) and ``partseg::group_norm`` (no aten GroupNorm), the program agrees with the JAX package's
+the pixels, no einsum), ``partseg::group_norm`` (no aten GroupNorm) and
+``partseg::bias_act`` (every convolution without its bias, no aten add of a
+bias or of a residual), the program agrees with the JAX package's
 make_infer_fn on the same converted parameters, and the export CLI.
 
 Tolerances: the program against the eager forward on the CPU, 1e-5 (the
@@ -79,6 +81,15 @@ def test_exported_graph_holds_the_kernel_op(symbolic):
     # hourglass's four ResBlocks and the head ConvBlock.
     assert names.count("partseg.group_norm.default") == 6
     assert not any("native_group_norm" in name for name in names)
+    # A bias_act node per convolution (19: the stem's, its ResBlock's three
+    # and skip, the four ResBlocks' three, the head block's and the head),
+    # the skip's in its block's residual pass; no convolution takes a bias.
+    # The two aten adds left are the hourglass's sum of its branches and the
+    # seg labels' shift.
+    convs = [node for node in calls if str(node.target) == "aten.conv2d.default"]
+    assert len(convs) == 19 and names.count("partseg.bias_act.default") == 18
+    assert all(len(node.args) < 3 or node.args[2] is None for node in convs)
+    assert names.count("aten.add.Tensor") == 2
     assert not any("einsum" in name for name in names)
     # The one softmax left is the per-pixel part softmax over the channels.
     softmaxes = [node for node in calls if "softmax" in str(node.target)

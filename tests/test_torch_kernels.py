@@ -30,6 +30,7 @@ from partseg_tpu_torch import tracing
 from partseg_tpu_torch.partops import precision_from_cov
 from partseg_tpu_torch.partops.kernels import (
     _build,
+    bias_act,
     group_norm,
     render_assemble,
     softmax_moments,
@@ -356,14 +357,15 @@ def test_kernel_modules_import_and_run_on_cpu_without_building():
     """Importing the wrappers and running them on CPU tensors needs no
     nvcc, no triton and no GPU: nothing is built or loaded."""
     mu, _, lam, app = (t(v) for v in _render_inputs(5))
-    kernels = ("softmax_moments", "render_assemble", "group_norm")
+    kernels = ("softmax_moments", "render_assemble", "group_norm", "bias_act")
     before = [launches(k) for k in kernels]
     softmax_moments(t(_logits(5)))
     render_assemble(mu, lam, app, 8, 8)
     group_norm(torch.ones((2, 16, 3, 3)), torch.ones(16), torch.zeros(16), 8, 1e-6, relu=True)
+    bias_act(torch.ones((2, 16, 3, 3)), torch.zeros(16), relu=True)
     assert [launches(k) for k in kernels] == before
     assert _build.library.cache_info().currsize == 0
     assert sorted(p.name for p in _build.CSRC_DIR.glob("*.cu")) == [
-        "bilinear_sample.cu", "errors.cu", "group_norm.cu", "render_assemble.cu",
+        "bias_act.cu", "bilinear_sample.cu", "errors.cu", "group_norm.cu", "render_assemble.cu",
         "softmax_moments.cu", "tps_warp.cu"]
     assert "arch=compute_90a,code=sm_90a" in _build.COMPILE_FLAGS
